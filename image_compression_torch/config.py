@@ -36,6 +36,9 @@ class RewardConfig:
 class MulticutConfig:
     """Grid multicut settings (the reference's MulticutConfig)."""
 
+    max_rounds: int = 3               # sorted finishing rounds (fixpoint
+    #                                   bound) where the top supertile does
+    #                                   not cover the image
     mode: str = "chain"               # only "chain" is ported
     icm_sweeps: int = 0               # only 0 is ported
     hier_rounds: tuple = (2, 1)       # rounds per level (last repeats)

@@ -2,323 +2,397 @@
 // CUDA C++ for sm_90a.
 //
 // Replaces the Pallas kernel of the JAX reference package,
-// ops/multicut_leaf.py::_leaf_kernel. The plain
-// PyTorch version of the same function is leaf_plain in
-// image_compression_torch/ops/multicut_leaf.py; on integer-valued costs the
-// two agree bit for bit.
+// ops/multicut_leaf.py::_leaf_kernel. The plain PyTorch version of the same
+// function is leaf_plain in image_compression_torch/ops/multicut_leaf.py; on
+// integer-valued costs the two agree bit for bit. The test
+// tests/test_torch_leaf_source.py compiles this file for the CPU and holds
+// it bitwise to leaf_plain.
 //
-// Design: one CTA of 256 threads per 16x16 supertile; all supertiles of a
-// batch in one launch. Level 0 runs the four 8x8 children at once, 64
-// threads per child, each thread owning one row of its child's 64x64 pair
-// matrix. Level 1 runs the whole CTA on the [s1, s1] matrix. Every matrix
-// lives in dynamic shared memory with a padded row stride (S + 1), so the
-// row scans of 32 threads hit 32 distinct banks. Device memory is touched
-// only to read the inputs and write the level-1 state.
+// Design: one CTA of 128 threads per 16x16 supertile, all supertiles of a
+// batch in one launch. Level 0 runs one warp per 8x8 child (64 slots, only
+// __syncwarp between its steps); level 1 runs the whole CTA on s1 slots.
 //
-// The Pallas kernel contracts one-hot matrices on the MXU; here a slot map
-// (the merge map of a round, or the dense re-rank) is applied by listing the
-// members of each target slot in ascending order and summing them:
-//   x[a][B]  = sum over b -> B of sym[a][b]    (thread per row a)
-//   sym[A][B] = sum over a -> A of x[a][B]     (thread per column B)
-// which is O(S^2) per map instead of O(S^3), deterministic, and exact on
-// integer-valued weights. Weights are rounded to bf16 (nearest even) before
-// they are summed in f32, as the reference does.
+// The pair matrices of leaf_plain are sparse: an 8x8 child has 112 pixel
+// edges and so at most 112 adjacent region pairs, a supertile 4 * 112 + 32.
+// So the state is a pair list per child (128 entries) and per supertile (the
+// same 512 entries), key A << 16 | B with A < B and the summed cost. A round:
+//   1. best[A] = max over the pairs of A of (cost bits << 32 | 0xFFFF - B),
+//      a 64-bit shared-memory atomicMax over pairs with cost > 0: the row
+//      maximum with ties to the smallest partner, merging iff it is > 0,
+//      which is the dense rule (dead and non-adjacent slots hold 0 there);
+//   2. hook, break 2-cycles toward the smaller id, three pointer doublings;
+//   3. m (smallest pixel id, f32 bits) by an integer atomicMin per target;
+//   4. relabel the keys through the map, bitonic-sort them, sum each run of
+//      equal keys in sorted order and compact the run heads (ranks from
+//      __ballot_sync + __popc).
+// Sums run in an order fixed by the sort network and the input, never by
+// atomics, so outputs repeat bit for bit from run to run on real costs too.
+// Dense ranks (the re-rank after the rounds) also come from ballots. The
+// dense [s1, s1] matrix is written only at the end: a float4 zero fill of
+// each supertile's block, then the pairs.
 //
-// What bounds it on an H100: per supertile ~3 KB in, ~2 KB + 4*s1*s1 bytes
-// out; for 2048 supertiles at s1 = 64 about 44 MB (~13 us at 3.35 TB/s).
-// The arithmetic is a few hundred thousand f32 adds and compares per
-// supertile, of the same order at the f32 rate; the kernel is latency-bound
-// by its many block-wide barriers at one CTA per SM (~145 KB of shared
-// memory each).
+// What bounds it on an H100: per supertile ~3 KB in, ~2 KB + 4 * s1 * s1
+// bytes out; for 2048 supertiles at s1 = 64 about 44 MB (~13 us at
+// 3.35 TB/s), the 33.5 MB sym write most of it. The work is compares and
+// adds on sparse graphs of at most 128 slots, latency-bound by the steps of
+// the rounds and the sort networks, so the design keeps many supertiles in
+// flight: ~15 KB of static shared memory per CTA (no dynamic shared memory)
+// and at most 64 registers, for 8 or more resident supertiles per SM. No
+// tensor cores: wgmma would bring back the O(S^3) one-hot products of the
+// Pallas kernel. No TMA: each supertile reads ~3 KB once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int S0 = 64;             // level-0 slots: the pixels of an 8x8 child
-constexpr int LD0 = S0 + 1;        // padded row stride of the level-0 matrices
-constexpr int MAX_S1 = 128;        // largest level-1 slot cap the CTA holds
-constexpr int THREADS = 4 * S0;    // one thread per level-0 row of each child
-constexpr int NVEC = 9;            // per-team slot vectors (see Team)
-constexpr int MAT_WORDS = 4 * S0 * LD0;  // four child matrices; also holds
-                                         // one [MAX_S1][MAX_S1 + 1] matrix
-static_assert(MAX_S1 * (MAX_S1 + 1) <= MAT_WORDS, "level-1 matrix must fit");
+constexpr int S0 = 64;            // level-0 slots: the pixels of an 8x8 child
+constexpr int LIST0 = 128;        // pair entries of a child (112 edges + pad)
+constexpr int LIST1 = 4 * LIST0;  // pair entries of a supertile
+constexpr int MID0 = 120;         // child q's 8 mid-line edges sit at
+                                  // q * LIST0 + MID0 ... (past its <= 112)
+constexpr int THREADS = 128;      // one warp per child
+constexpr int MAX_S1 = 128;       // largest level-1 slot cap
+constexpr unsigned SENT = 0xFFFFFFFFu;  // empty list entry
+constexpr unsigned FULL = 0xFFFFFFFFu;  // all lanes
 
-constexpr int SMEM_WORDS = 2 * MAT_WORDS + 4 * NVEC * S0 + NVEC * MAX_S1
-                           + 4 * S0 + 8;
-constexpr size_t SMEM_BYTES = sizeof(float) * SMEM_WORDS;
-
-// A group of threads that owns one pair matrix and its slot vectors.
-struct Team {
-  float* sym;    // [S][ld] pair-cost matrix
-  float* x;      // [S][ld] scratch
-  float* m;      // [S] smallest pixel id per slot (sentinel: dead)
-  float* mtmp;   // [S]
-  int* nxt;      // [S] merge map
-  int* tmp;      // [S]
-  int* cmap;     // [S] entry rank -> current rank
-  int* cnt;      // [S] members per target slot
-  int* start;    // [S] first member per target slot
-  int* mem;      // [S] members, grouped by target slot
-  int* rank;     // [S] dense re-rank (inclusive live count - 1)
-  int S, ld, t, nt;  // slots, row stride, thread index in team, team size
+struct Shared {
+  unsigned key[LIST1];               // pair lists (child q: q * LIST0 ...)
+  float val[LIST1];                  // summed pair costs
+  unsigned long long best[4 * S0];   // packed (cost, partner) per slot
+  int nxt[4 * S0];                   // merge map
+  int tmp[4 * S0];
+  unsigned m[4 * S0];                // smallest pixel id per slot (f32 bits)
+  unsigned mnew[4 * S0];
+  int lab[4 * S0];                   // level 0: pixel -> slot; level 1:
+                                     // entry slot -> slot (cmap)
+  int rank[4 * S0];                  // dense rank per slot
+  int rank1[4 * S0];                 // pixel -> level-1 entry slot, -1 frozen
+  unsigned m0c[4 * S0];              // each child's m after its re-rank
+  int wcount[16];                    // compaction counts per chunk and warp
+  int wsum[4];                       // alive slots per warp (level-1 rank)
+  int nal[4];                        // live regions per child
+  int count[4];                      // pair entries per child
 };
 
-__device__ Team make_team(float* sym, float* x, float* vec, int S, int ld,
-                          int t, int nt) {
-  Team tm;
-  tm.sym = sym;
-  tm.x = x;
-  tm.m = vec;
-  tm.mtmp = vec + S;
-  int* iv = reinterpret_cast<int*>(vec + 2 * S);
-  tm.nxt = iv;
-  tm.tmp = iv + S;
-  tm.cmap = iv + 2 * S;
-  tm.cnt = iv + 3 * S;
-  tm.start = iv + 4 * S;
-  tm.mem = iv + 5 * S;
-  tm.rank = iv + 6 * S;
-  tm.S = S;
-  tm.ld = ld;
-  tm.t = t;
-  tm.nt = nt;
-  return tm;
+template <int NT>
+__device__ __forceinline__ void group_sync() {
+  if (NT == 32)
+    __syncwarp();
+  else
+    __syncthreads();
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// Aggregate sym and m through the slot map `map` (values in [-1, S); -1
-// drops the slot): sym'[A][B] = sum over a -> A, b -> B of sym[a][b] and
-// m'[A] = min over a -> A of m[a] (sentinel if A has no member). Called by
-// every thread of the block.
-__device__ void remap(const Team& tm, const int* map, bool zero_diag,
-                      float sentinel) {
-  const int S = tm.S, ld = tm.ld;
-  for (int A = tm.t; A < S; A += tm.nt) {
-    int c = 0;
-    for (int a = 0; a < S; ++a) c += (map[a] == A);
-    tm.cnt[A] = c;
-  }
-  __syncthreads();
-  if (tm.t == 0) {
-    int acc = 0;
-    for (int A = 0; A < S; ++A) {
-      tm.start[A] = acc;
-      acc += tm.cnt[A];
-    }
-  }
-  __syncthreads();
-  for (int A = tm.t; A < S; A += tm.nt) {
-    int pos = tm.start[A];
-    for (int a = 0; a < S; ++a)
-      if (map[a] == A) tm.mem[pos++] = a;
-  }
-  __syncthreads();
-  for (int a = tm.t; a < S; a += tm.nt) {
-    const float* row = tm.sym + a * ld;
-    for (int B = 0; B < S; ++B) {
-      float s = 0.f;
-      const int end = tm.start[B] + tm.cnt[B];
-      for (int j = tm.start[B]; j < end; ++j) s += row[tm.mem[j]];
-      tm.x[a * ld + B] = s;
-    }
-  }
-  for (int A = tm.t; A < S; A += tm.nt) {
-    float v = sentinel;
-    const int end = tm.start[A] + tm.cnt[A];
-    for (int j = tm.start[A]; j < end; ++j) v = fminf(v, tm.m[tm.mem[j]]);
-    tm.mtmp[A] = v;
-  }
-  __syncthreads();
-  for (int B = tm.t; B < S; B += tm.nt) {
-    for (int A = 0; A < S; ++A) {
-      float s = 0.f;
-      const int end = tm.start[A] + tm.cnt[A];
-      for (int j = tm.start[A]; j < end; ++j) s += tm.x[tm.mem[j] * ld + B];
-      tm.sym[A * ld + B] = (zero_diag && A == B) ? 0.f : s;
-    }
-  }
-  for (int A = tm.t; A < S; A += tm.nt) tm.m[A] = tm.mtmp[A];
-  __syncthreads();
+__device__ __forceinline__ int pow2_at_least(int n) {
+  int p = 2;
+  while (p < n) p <<= 1;
+  return p;
 }
 
-// `rounds` chain-mode GAEC rounds, then the dense re-rank of the live slots.
-// cmap starts as the identity; *n_alive receives the live slot count.
-__device__ void gaec_rounds(const Team& tm, int rounds, float sentinel,
-                            int* n_alive) {
-  const int S = tm.S, ld = tm.ld;
-  for (int i = tm.t; i < S; i += tm.nt) tm.cmap[i] = i;
-  for (int r = 0; r < rounds; ++r) {
-    // hook each slot to its most attractive partner (first index of the
-    // row maximum) when that is attractive
-    for (int a = tm.t; a < S; a += tm.nt) {
-      const float* row = tm.sym + a * ld;
-      float best = row[0];
-      int arg = 0;
-      for (int b = 1; b < S; ++b) {
-        const float v = row[b];
-        if (v > best) {
-          best = v;
-          arg = b;
+// Bitonic sort of entries [0, n) by key (n a power of two, n/2 >= 1),
+// carrying the values; called by all NT threads of the group.
+template <int NT>
+__device__ void bitonic(unsigned* key, float* val, int n, int t) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int x = t; x < n / 2; x += NT) {
+        const int i = 2 * x - (x & (j - 1));  // bit j of i is clear
+        const int l = i + j;
+        const unsigned ki = key[i], kl = key[l];
+        if ((ki > kl) == ((i & k) == 0)) {
+          key[i] = kl;
+          key[l] = ki;
+          const float v = val[i];
+          val[i] = val[l];
+          val[l] = v;
         }
       }
-      tm.nxt[a] = best > 0.f ? arg : a;
+      group_sync<NT>();
     }
-    __syncthreads();
-    // break 2-cycles toward the smaller id
-    for (int a = tm.t; a < S; a += tm.nt) {
-      const int v = tm.nxt[a];
-      tm.tmp[a] = (tm.nxt[v] == a && a < v) ? a : v;
-    }
-    __syncthreads();
-    // three pointer doublings contract the chains
-    for (int a = tm.t; a < S; a += tm.nt) tm.nxt[a] = tm.tmp[tm.tmp[a]];
-    __syncthreads();
-    for (int a = tm.t; a < S; a += tm.nt) tm.tmp[a] = tm.nxt[tm.nxt[a]];
-    __syncthreads();
-    for (int a = tm.t; a < S; a += tm.nt) tm.nxt[a] = tm.tmp[tm.tmp[a]];
-    __syncthreads();
-    remap(tm, tm.nxt, true, sentinel);
-    for (int i = tm.t; i < S; i += tm.nt) tm.cmap[i] = tm.nxt[tm.cmap[i]];
-    __syncthreads();  // nxt is rewritten by the next round
   }
-  __syncthreads();
-  // live iff it carries a finite smallest pixel id
-  if (tm.t == 0) {
-    int c = 0;
-    for (int a = 0; a < S; ++a) {
-      c += tm.m[a] < sentinel;
-      tm.rank[a] = c - 1;
-    }
-    *n_alive = c;
-  }
-  __syncthreads();
-  for (int a = tm.t; a < S; a += tm.nt)
-    tm.tmp[a] = tm.m[a] < sentinel ? tm.rank[a] : -1;
-  __syncthreads();
-  remap(tm, tm.tmp, false, sentinel);
-  for (int i = tm.t; i < S; i += tm.nt) {
-    const int c = tm.cmap[i];
-    tm.cmap[i] = (c >= 0 && c < S) ? tm.rank[c] : 0;
-  }
-  __syncthreads();
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Sort entries [0, pow2(n)), sum each run of equal keys in sorted order and
+// write the run heads, in order, to the front; the rest of the sorted range
+// becomes SENT. Entries past the range are SENT already. Returns the count.
+template <int NT>
+__device__ int dedup(unsigned* key, float* val, int n, int t, int* wcount) {
+  constexpr int NW = NT / 32;
+  const int size = pow2_at_least(n);  // <= 4 * NT
+  bitonic<NT>(key, val, size, t);
+  const int lane = t & 31, w = t / 32;
+  unsigned hk[4], bal[4];
+  float hv[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int i = c * NT + t;
+    bool head = false;
+    hk[c] = SENT;
+    hv[c] = 0.f;
+    if (i < size) {
+      const unsigned k = key[i];
+      if (k != SENT && (i == 0 || key[i - 1] != k)) {
+        float s = 0.f;
+        for (int j = i; j < size && key[j] == k; ++j) s += val[j];
+        head = true;
+        hk[c] = k;
+        hv[c] = s;
+      }
+    }
+    bal[c] = __ballot_sync(FULL, head);
+    if (lane == 0) wcount[c * NW + w] = __popc(bal[c]);
+  }
+  group_sync<NT>();  // every read above is done; the counts are visible
+  int total = 0, pre[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    pre[c] = total;
+    for (int ww = 0; ww < NW; ++ww) {
+      const int cnt = wcount[c * NW + ww];
+      if (ww < w) pre[c] += cnt;
+      total += cnt;
+    }
+  }
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (hk[c] != SENT) {
+      const int pos = pre[c] + __popc(bal[c] & below);
+      key[pos] = hk[c];
+      val[pos] = hv[c];
+    }
+  }
+  for (int i = total + t; i < size; i += NT) key[i] = SENT;
+  group_sync<NT>();
+  return total;
+}
+
+// One chain-mode round on a pair list over `slots` slots; `lab[0, n_lab)`
+// is composed with the round's map. Returns the new entry count.
+template <int NT>
+__device__ int gaec_round(unsigned* key, float* val, int n, int slots,
+                          unsigned long long* best, int* nxt, int* tmp,
+                          unsigned* m, unsigned* mnew, int* lab, int n_lab,
+                          unsigned sentinel, int t, int* wcount) {
+  for (int s = t; s < slots; s += NT) best[s] = 0ull;
+  group_sync<NT>();
+  for (int i = t; i < n; i += NT) {
+    const unsigned k = key[i];
+    const float v = val[i];
+    if (k != SENT && v > 0.f) {
+      const unsigned long long hi = (unsigned long long)__float_as_uint(v)
+                                    << 32;
+      const unsigned a = k >> 16, b = k & 0xFFFFu;
+      atomicMax(&best[a], hi | (0xFFFFu - b));
+      atomicMax(&best[b], hi | (0xFFFFu - a));
+    }
+  }
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) {
+    const unsigned long long bk = best[s];
+    nxt[s] = bk ? (int)(0xFFFFu - (unsigned)(bk & 0xFFFFFFFFull)) : s;
+  }
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) {  // break 2-cycles to the smaller id
+    const int v = nxt[s];
+    tmp[s] = (nxt[v] == s && s < v) ? s : v;
+  }
+  group_sync<NT>();
+  // three pointer doublings contract the chains
+  for (int s = t; s < slots; s += NT) nxt[s] = tmp[tmp[s]];
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) tmp[s] = nxt[nxt[s]];
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) {
+    nxt[s] = tmp[tmp[s]];
+    mnew[s] = sentinel;
+  }
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) atomicMin(&mnew[nxt[s]], m[s]);
+  for (int i = t; i < n_lab; i += NT) lab[i] = nxt[lab[i]];
+  for (int i = t; i < n; i += NT) {
+    const unsigned k = key[i];
+    if (k == SENT) continue;
+    const int a = nxt[k >> 16], b = nxt[k & 0xFFFFu];
+    key[i] = a == b ? SENT
+                    : ((unsigned)min(a, b) << 16) | (unsigned)max(a, b);
+  }
+  group_sync<NT>();
+  for (int s = t; s < slots; s += NT) m[s] = mnew[s];
+  return dedup<NT>(key, val, n, t, wcount);  // syncs before it reads
+}
+
+__global__ void __launch_bounds__(THREADS, 8)
 leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
             const float* __restrict__ wmid, const float* __restrict__ pix,
             int* __restrict__ rank_out, int* __restrict__ gid_out,
             float* __restrict__ sym_out, float* __restrict__ m_out,
             int* __restrict__ ncand_out, int* __restrict__ over_out, int s1,
-            int r0, int r1, float sentinel) {
-  extern __shared__ float smem[];
-  float* mat_a = smem;                       // child matrices, then level-1 x
-  float* mat_b = mat_a + MAT_WORDS;          // child x, then level-1 matrix
-  float* vec0 = mat_b + MAT_WORDS;           // 4 children x NVEC x S0
-  float* vec1 = vec0 + 4 * NVEC * S0;        // NVEC x MAX_S1
-  int* rank1 = reinterpret_cast<int*>(vec1 + NVEC * MAX_S1);  // [4][S0]
-  int* nal = rank1 + 4 * S0;                 // [0..3] children, [4] level 1
-
+            int r0, int r1, float sentinel_f) {
+  __shared__ Shared sh;
   const int tid = threadIdx.x;
-  const int q = tid / S0;  // this thread's child (quad order 00, 01, 10, 11)
-  const int p = tid % S0;  // its row / pixel within the child
-  const size_t in0 = (size_t)blockIdx.x * 4 * S0;
+  const int q = tid / 32;  // this warp's child (quad order 00, 01, 10, 11)
+  const int lane = tid % 32;
+  const unsigned below = (1u << lane) - 1u;
+  const unsigned sentinel = __float_as_uint(sentinel_f);
+  const size_t tile = blockIdx.x;
+  const size_t in0 = tile * 4 * S0;
 
-  // ---- level 0: band-structured pair matrix of each child ---------------
-  const Team c = make_team(mat_a + q * S0 * LD0, mat_b + q * S0 * LD0,
-                           vec0 + q * NVEC * S0, S0, LD0, p, S0);
-  for (int b = 0; b < S0; ++b) c.sym[p * LD0 + b] = 0.f;
-  __syncthreads();
-  {
-    const float wh = bf16_round(w0h[in0 + q * S0 + p]);  // pixel p -- p+1
-    const float wv = bf16_round(w0v[in0 + q * S0 + p]);  // pixel p -- p+8
-    if (p % 8 != 7) {
-      c.sym[p * LD0 + p + 1] = wh;
-      c.sym[(p + 1) * LD0 + p] = wh;
-    }
-    if (p + 8 < S0) {
-      c.sym[p * LD0 + p + 8] = wv;
-      c.sym[(p + 8) * LD0 + p] = wv;
-    }
-    c.m[p] = pix[in0 + q * S0 + p];
+  // ---- level 0: one warp per child --------------------------------------
+  unsigned* key0 = sh.key + q * LIST0;
+  float* val0 = sh.val + q * LIST0;
+  unsigned* m0 = sh.m + q * S0;
+  int* lab0 = sh.lab + q * S0;
+  for (int p = lane; p < S0; p += 32) {
+    // entry 2p: pixel p -- p+1; entry 2p+1: pixel p -- p+8
+    const float wh = bf16_round(w0h[in0 + q * S0 + p]);
+    const float wv = bf16_round(w0v[in0 + q * S0 + p]);
+    const bool has_h = p % 8 != 7, has_v = p + 8 < S0;
+    key0[2 * p] = has_h ? ((unsigned)p << 16) | (unsigned)(p + 1) : SENT;
+    val0[2 * p] = has_h ? wh : 0.f;
+    key0[2 * p + 1] = has_v ? ((unsigned)p << 16) | (unsigned)(p + 8) : SENT;
+    val0[2 * p + 1] = has_v ? wv : 0.f;
+    m0[p] = __float_as_uint(pix[in0 + q * S0 + p]);
+    lab0[p] = p;
+  }
+  __syncwarp();
+  int n0 = LIST0;
+  for (int r = 0; r < r0; ++r)
+    n0 = gaec_round<32>(key0, val0, n0, S0, sh.best + q * S0,
+                        sh.nxt + q * S0, sh.tmp + q * S0, m0,
+                        sh.mnew + q * S0, lab0, S0, sentinel, lane,
+                        sh.wcount + 4 * q);
+  if (r0 == 0) n0 = dedup<32>(key0, val0, n0, lane, sh.wcount + 4 * q);
+
+  // dense re-rank of the live slots (ranks keep the order of the keys)
+  int* rank0 = sh.rank + q * S0;
+  unsigned* m0c = sh.m0c + q * S0;
+  int nal = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int s = c * 32 + lane;
+    const bool alive = m0[s] < sentinel;
+    const unsigned b = __ballot_sync(FULL, alive);
+    const int r = nal + __popc(b & below);
+    rank0[s] = r;
+    if (alive) m0c[r] = m0[s];
+    nal += __popc(b);
+  }
+  for (int r = nal + lane; r < S0; r += 32) m0c[r] = sentinel;
+  __syncwarp();
+  for (int i = lane; i < n0; i += 32) {
+    const unsigned k = key0[i];
+    key0[i] = ((unsigned)rank0[k >> 16] << 16) | (unsigned)rank0[k & 0xFFFFu];
+  }
+  const int rp0 = rank0[lab0[lane]], rp1 = rank0[lab0[lane + 32]];
+  if (lane == 0) {
+    sh.nal[q] = nal;
+    sh.count[q] = n0;
   }
   __syncthreads();
-  gaec_rounds(c, r0, sentinel, &nal[q]);
 
   // ---- level-1 transition: offsets, freeze, embed, mid-line edges -------
-  const int off_q = (q > 0 ? nal[0] : 0) + (q > 1 ? nal[1] : 0)
-                    + (q > 2 ? nal[2] : 0);
-  {
-    const int r = c.cmap[p];  // pixel p's level-0 rank
-    const int cand = r + off_q;
+  const int off[4] = {0, sh.nal[0], sh.nal[0] + sh.nal[1],
+                      sh.nal[0] + sh.nal[1] + sh.nal[2]};
+  const int total0 = off[3] + sh.nal[3];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int p = lane + 32 * j;
+    const int r = j ? rp1 : rp0;
+    const int cand = r + off[q];
     const bool frozen = cand >= s1;
-    gid_out[in0 + q * S0 + p] = frozen ? (int)c.m[r] : 0;
-    rank1[q * S0 + p] = frozen ? -1 : cand;
+    gid_out[in0 + q * S0 + p] =
+        frozen ? (int)__uint_as_float(m0c[r]) : 0;
+    sh.rank1[q * S0 + p] = frozen ? -1 : cand;
   }
-  const int ld1 = s1 + 1;
-  const Team L = make_team(mat_b, mat_a, vec1, s1, ld1, tid, THREADS);
-  for (int i = tid; i < s1 * ld1; i += THREADS) L.sym[i] = 0.f;
-  for (int i = tid; i < s1; i += THREADS) L.m[i] = sentinel;
-  __syncthreads();
-  // the live block of each child lands at its rank offset (dead child
-  // slots carry zero rows and the sentinel, so skipping them is exact)
-  for (int qq = 0; qq < 4; ++qq) {
-    const int n = nal[qq];
-    const int off = (qq > 0 ? nal[0] : 0) + (qq > 1 ? nal[1] : 0)
-                    + (qq > 2 ? nal[2] : 0);
-    const float* src = mat_a + qq * S0 * LD0;
-    const float* msrc = vec0 + qq * NVEC * S0;
-    for (int i = tid; i < n * n; i += THREADS) {
-      const int a = i / n, b = i % n;
-      if (off + a < s1 && off + b < s1)
-        L.sym[(off + a) * ld1 + off + b] = src[a * LD0 + b];
-    }
-    for (int a = tid; a < n; a += THREADS)
-      if (off + a < s1) L.m[off + a] = msrc[a];
+  for (int i = lane; i < sh.count[q]; i += 32) {
+    const unsigned k = key0[i];
+    const unsigned a = (k >> 16) + off[q], b = (k & 0xFFFFu) + off[q];
+    key0[i] = b < (unsigned)s1 ? (a << 16) | b : SENT;
+  }
+  for (int s = tid; s < s1; s += THREADS) {
+    unsigned v = sentinel;
+    for (int qq = 0; qq < 4; ++qq)
+      if (s >= off[qq] && s < off[qq] + sh.nal[qq])
+        v = sh.m0c[qq * S0 + s - off[qq]];
+    sh.m[s] = v;  // level-0 m is dead: level 1 reuses it
+    sh.lab[s] = s;
   }
   __syncthreads();
-  if (tid == 0) {
+  if (tid < 32) {
     // 16 horizontal edges (y, 7)-(y, 8), then 16 vertical (7, x)-(8, x);
-    // endpoints sit in different children, so a != b
-    for (int e = 0; e < 32; ++e) {
-      int ia, ib;
-      if (e < 16) {
-        ia = ((e / 8) * 2) * S0 + (e % 8) * 8 + 7;
-        ib = ((e / 8) * 2 + 1) * S0 + (e % 8) * 8;
-      } else {
-        const int x = e - 16;
-        ia = (x / 8) * S0 + 56 + x % 8;
-        ib = (2 + x / 8) * S0 + x % 8;
-      }
-      const int A = rank1[ia], B = rank1[ib];
-      if (A >= 0 && B >= 0) {
-        const float w = bf16_round(wmid[(size_t)blockIdx.x * 32 + e]);
-        L.sym[A * ld1 + B] += w;
-        L.sym[B * ld1 + A] += w;
-      }
+    // endpoints sit in different children, so their ranks differ
+    const int e = tid;
+    int ia, ib;
+    if (e < 16) {
+      ia = ((e / 8) * 2) * S0 + (e % 8) * 8 + 7;
+      ib = ((e / 8) * 2 + 1) * S0 + (e % 8) * 8;
+    } else {
+      const int x = e - 16;
+      ia = (x / 8) * S0 + 56 + x % 8;
+      ib = (2 + x / 8) * S0 + x % 8;
+    }
+    const int a = sh.rank1[ia], b = sh.rank1[ib];
+    if (a >= 0 && b >= 0) {
+      const int pos = (e / 8) * LIST0 + MID0 + e % 8;
+      sh.key[pos] = ((unsigned)min(a, b) << 16) | (unsigned)max(a, b);
+      sh.val[pos] = bf16_round(wmid[tile * 32 + e]);
     }
   }
   __syncthreads();
 
-  // ---- level-1 rounds, compaction, pixel remap ---------------------------
-  gaec_rounds(L, r1, sentinel, &nal[4]);
-  {
-    const int r = rank1[q * S0 + p];
-    rank_out[in0 + q * S0 + p] = r < 0 ? -1 : L.cmap[r];
+  // ---- level 1: the whole CTA on s1 slots --------------------------------
+  int n1 = dedup<THREADS>(sh.key, sh.val, LIST1, tid, sh.wcount);
+  for (int r = 0; r < r1; ++r)
+    n1 = gaec_round<THREADS>(sh.key, sh.val, n1, s1, sh.best, sh.nxt,
+                             sh.tmp, sh.m, sh.mnew, sh.lab, s1, sentinel,
+                             tid, sh.wcount);
+  __syncthreads();  // m of the last round is visible
+  // dense re-rank: one slot per thread, ranks from ballots
+  const bool alive = tid < s1 && sh.m[tid] < sentinel;  // s1 <= THREADS
+  const unsigned b = __ballot_sync(FULL, alive);
+  if (lane == 0) sh.wsum[q] = __popc(b);
+  __syncthreads();
+  int base = 0, n_alive = 0;
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) {
+    if (w < q) base += sh.wsum[w];
+    n_alive += sh.wsum[w];
   }
-  float* so = sym_out + (size_t)blockIdx.x * s1 * s1;
-  for (int i = tid; i < s1 * s1; i += THREADS)
-    so[i] = L.sym[(i / s1) * ld1 + i % s1];
-  for (int i = tid; i < s1; i += THREADS)
-    m_out[(size_t)blockIdx.x * s1 + i] = L.m[i];
+  const int my_rank = base + __popc(b & below);
+  float* m_tile = m_out + tile * s1;
+  if (alive) {
+    sh.rank[tid] = my_rank;
+    m_tile[my_rank] = __uint_as_float(sh.m[tid]);
+  }
+  for (int k = n_alive + tid; k < s1; k += THREADS) m_tile[k] = sentinel_f;
+  float* so = sym_out + tile * s1 * s1;
+  const int nsym = s1 * s1;
+  if (nsym % 4 == 0) {
+    float4* so4 = reinterpret_cast<float4*>(so);
+    for (int i = tid; i < nsym / 4; i += THREADS)
+      so4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int i = tid; i < nsym; i += THREADS) so[i] = 0.f;
+  }
+  __syncthreads();  // ranks visible; the zero fill precedes the pairs
+  for (int i = tid; i < n1; i += THREADS) {
+    const unsigned k = sh.key[i];
+    const int a = sh.rank[k >> 16], c = sh.rank[k & 0xFFFFu];
+    so[a * s1 + c] = sh.val[i];
+    so[c * s1 + a] = sh.val[i];
+  }
+  for (int p = tid; p < 4 * S0; p += THREADS) {
+    const int r = sh.rank1[p];
+    rank_out[in0 + p] = r < 0 ? -1 : sh.rank[sh.lab[r]];
+  }
   if (tid == 0) {
-    ncand_out[blockIdx.x] = nal[4];
-    const int total = nal[0] + nal[1] + nal[2] + nal[3];
-    over_out[blockIdx.x] = total > s1 ? total - s1 : 0;
+    ncand_out[tile] = n_alive;
+    over_out[tile] = total0 > s1 ? total0 - s1 : 0;
   }
 }
 
@@ -336,13 +410,19 @@ extern "C" int multicut_leaf_launch(const void* w0h, const void* w0v,
   if (t1 < 0 || s1 < 1 || s1 > MAX_S1 || r0 < 0 || r1 < 0)
     return (int)cudaErrorInvalidValue;
   if (t1 == 0) return (int)cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      leaf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  leaf_kernel<<<t1, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  leaf_kernel<<<t1, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)w0h, (const float*)w0v, (const float*)wmid,
       (const float*)pix, (int*)rank, (int*)gid, (float*)sym, (float*)m,
       (int*)ncand, (int*)over, s1, r0, r1, (float)n_pix);
   return (int)cudaGetLastError();
+}
+
+// Resident CTAs (= supertiles) per SM, as the CUDA runtime computes it for
+// this card; -1 on error. Shared memory and registers do not depend on the
+// level-1 cap, so one instance serves every s1.
+extern "C" int multicut_leaf_resident(void) {
+  int blocks = -1;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, leaf_kernel, THREADS, 0);
+  return err == cudaSuccess ? blocks : -1;
 }

@@ -24,12 +24,12 @@ call raises. `launches` counts kernel launches.
 
 What bounds the kernel on an H100: it reads ~3 KB and writes ~2 KB plus the
 [s1, s1] f32 matrix per supertile — for T1 = 2048 supertiles (8 images of
-256x256) at s1 = 64 about 44 MB, ~13 us at 3.35 TB/s; its arithmetic (a few
-hundred thousand f32 adds and compares per supertile) is of the same order
-at the card's f32 rate. The design keeps every intermediate in shared
-memory: one CTA per supertile, the four level-0 matrices and the level-1
-matrix in ~145 KB of dynamic shared memory, the one-hot matmuls of the
-Pallas kernel replaced by member-list sums (see the .cu file).
+256x256) at s1 = 64 about 44 MB, ~13 us at 3.35 TB/s. The kernel keeps each
+supertile's adjacent region pairs as a sparse list (at most 480 pixel edges)
+in ~15 KB of shared memory, one CTA of 128 threads per supertile and one warp
+per level-0 child, so that many supertiles are resident on each SM; the
+dense [s1, s1] matrix is written only at the end (see the .cu file, which
+tests/test_torch_leaf_source.py compiles for the CPU).
 """
 
 from __future__ import annotations
@@ -115,7 +115,15 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.multicut_leaf_resident.argtypes = []
+        lib.multicut_leaf_resident.restype = ctypes.c_int
     return lib
+
+
+def resident_per_sm() -> int:
+    """Supertiles (CTAs) of the kernel resident on one SM, from the CUDA
+    occupancy calculator on the current card (the same for every s1)."""
+    return int(_lib().multicut_leaf_resident())
 
 
 def leaf_cuda(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,

@@ -48,7 +48,7 @@ def learned_costs(model: EdgeUNet, images: torch.Tensor,
 
 
 def segment_batch(costs_bhw2: torch.Tensor, mode: str = "chain",
-                  icm_sweeps: int = 0, hier_rounds: tuple | None = None,
+                  max_rounds: int = 3, icm_sweeps: int = 0, hier_rounds: tuple | None = None,
                   hier_caps: str | None = None, hier_agg: str = "matrix",
                   hier_leaf: str = "auto") -> torch.Tensor:
     """Batched multicut over cost planes -> labels [B, H, W] int32. Only
@@ -59,8 +59,9 @@ def segment_batch(costs_bhw2: torch.Tensor, mode: str = "chain",
             f"ported solver configuration is mode='chain', icm_sweeps=0, "
             f"hier_agg='matrix'; got mode={mode!r}, icm_sweeps={icm_sweeps}, "
             f"hier_agg={hier_agg!r}")
-    return multicut_grid(costs_bhw2, hier_rounds=hier_rounds,
-                         hier_caps=hier_caps, hier_leaf=hier_leaf)
+    return multicut_grid(costs_bhw2, max_rounds=max_rounds,
+                         hier_rounds=hier_rounds, hier_caps=hier_caps,
+                         hier_leaf=hier_leaf)
 
 
 def fallback_single_slice(images_f01: torch.Tensor, labels: torch.Tensor,
@@ -119,7 +120,8 @@ def _device_labels(images_u8: list[np.ndarray], cost_fn: Callable,
     clock.mark("unet")
     mc = cfg.multicut
     labels = segment_batch(
-        costs, mode=mc.mode, icm_sweeps=mc.icm_sweeps,
+        costs, mode=mc.mode, max_rounds=mc.max_rounds,
+        icm_sweeps=mc.icm_sweeps,
         hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
         hier_caps=mc.hier_caps, hier_agg=mc.hier_agg, hier_leaf=mc.hier_leaf)
     clock.mark("solver")

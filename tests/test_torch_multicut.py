@@ -1,5 +1,6 @@
 """Grid multicut entry of the PyTorch port vs the JAX reference: the
-hierarchical branch, the pad-to-32 branch, relabel_connected, the level
+hierarchical branch, the pad-to-32 branch, the sorted finishing rounds of
+images the top supertile does not cover, relabel_connected, the level
 plans and cap schedules, and globalize."""
 
 import functools
@@ -14,6 +15,7 @@ from image_compression_tpu.ops import multicut as jmc
 from image_compression_tpu.ops import multicut_hier as jh
 from image_compression_torch.ops import multicut_hier as th
 from image_compression_torch.ops.multicut import (multicut_grid,
+                                                  multicut_objective,
                                                   relabel_connected)
 
 torch.set_num_threads(1)
@@ -24,7 +26,8 @@ KW = dict(hier_rounds=(2, 1), hier_caps="flat64")
 @functools.partial(jax.jit, static_argnames=("caps",))
 def _j_labels(costs, caps):
     return jmc.multicut_grid(costs, icm_sweeps=0, hier_agg="matrix",
-                             hier_rounds=(2, 1), hier_caps=caps)
+                             max_rounds=3, hier_rounds=(2, 1),
+                             hier_caps=caps)
 
 
 @pytest.mark.parametrize("side,caps", [(16, "flat64"), (32, "flat64"),
@@ -44,11 +47,63 @@ def test_labels_bitwise(side, caps):
             got[i].numpy())
 
 
+@pytest.mark.parametrize("shape", [(48, 48), (32, 64), (64, 32), (40, 72)])
+def test_sorted_finish_bitwise(shape):
+    """Integer costs on images whose top supertile does not cover them
+    (48x48: top 16; 32x64 and 64x32: top 32; 40x72 pads to 64x96, top 32):
+    the sorted finishing rounds give the reference's labels, batched over
+    two images."""
+    rng = np.random.default_rng(sum(shape))
+    costs = rng.integers(-8, 9, size=(2,) + shape + (2,)).astype(np.float32)
+    got = multicut_grid(torch.as_tensor(costs), **KW)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(_j_labels(jnp.asarray(costs[i]), "flat64")),
+            got[i].numpy())
+
+
+def test_sorted_finish_to_one_region():
+    """Attractive costs: the first round leaves each image one region, so
+    the next round has no pair left and the rounds stop there."""
+    costs = np.random.default_rng(3).integers(
+        1, 9, size=(2, 32, 64, 2)).astype(np.float32)
+    got = multicut_grid(torch.as_tensor(costs), **KW)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(_j_labels(jnp.asarray(costs[i]), "flat64")),
+            got[i].numpy())
+    assert not bool(got.any())
+
+
+def test_sorted_finish_real_costs_objective():
+    """Real-valued costs: f32 pair sums may be grouped differently, so the
+    port is held to the reference's objective within 1%."""
+    costs = np.random.default_rng(1).normal(
+        size=(2, 48, 80, 2)).astype(np.float32)
+    got = multicut_grid(torch.as_tensor(costs), **KW).numpy()
+    for i in range(2):
+        ref = np.asarray(_j_labels(jnp.asarray(costs[i]), "flat64"))
+        want = multicut_objective(costs[i], ref)
+        assert abs(multicut_objective(costs[i], got[i]) - want) <= \
+            0.01 * abs(want)
+
+
+def test_photo_shape_solves():
+    """A 375x500 photo (ImageNet's commonest shape) pads to 384x512 and
+    finishes with sorted rounds: minlabel labels of the input's shape."""
+    costs = torch.as_tensor(np.random.default_rng(2).integers(
+        -8, 9, size=(1, 375, 500, 2)).astype(np.float32))
+    labels = multicut_grid(costs, **KW)[0]
+    assert labels.shape == (375, 500)
+    flat = torch.arange(375 * 500, dtype=torch.int32).reshape(375, 500)
+    assert bool((labels <= flat).all())
+    assert torch.equal(labels[labels == flat].sort().values,
+                       torch.unique(labels))
+
+
 def test_unported_shapes_raise():
     with pytest.raises(NotImplementedError):
         multicut_grid(torch.ones((1, 8, 8, 2)), **KW)  # sorted ensemble
-    with pytest.raises(NotImplementedError):
-        multicut_grid(torch.ones((1, 48, 48, 2)), **KW)  # sorted finish
 
 
 @pytest.mark.parametrize("n_labels", [2, 5])

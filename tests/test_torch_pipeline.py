@@ -116,3 +116,59 @@ def test_reassembly_lossless(runs):
     assert len(list(t_dirs[4].glob("slice_*.png"))) == 3  # kept and merged
     for img, d in zip(images, t_dirs):
         np.testing.assert_array_equal(reassemble_array(d), ensure_rgba(img))
+
+
+@pytest.fixture(scope="module")
+def wide_run(tmp_path_factory):
+    """One non-square 48x80 image (three vertical bands: low noise, flat,
+    high noise) through both pipelines; its top supertile is 16, so the
+    solver finishes with the sorted rounds."""
+    h, w = 48, 80
+    rng = np.random.default_rng(7)
+    part = np.zeros((1, h, w), np.int64)
+    part[:, :, 24:56] = 1
+    part[:, :, 56:] = 2
+    img = np.zeros((h, w, 3), np.uint8)
+    img[:, :24] = rng.integers(0, 16, (h, 24, 3))
+    img[:, 24:56] = (200, 0, 0)
+    img[:, 56:] = rng.integers(100, 256, (h, 24, 3))
+    out = tmp_path_factory.mktemp("wide")
+
+    def j_cost(_batch):
+        return (2.0 * je.edges_from_labels(jnp.asarray(part)) - 1.0) * \
+            je.edge_validity_masks(h, w)
+
+    def t_cost(batch):
+        return (2.0 * te.edges_from_labels(torch.as_tensor(part)) - 1.0) * \
+            te.edge_validity_masks(h, w, device=batch.device)
+
+    jcfg = JConfig()
+    jcfg.multicut.hier_agg = "matrix"
+    cfg = Config()
+    j_labels = np.asarray(jp._device_labels([img], j_cost, jcfg))
+    j_wire = jax.tree.map(np.asarray, jp._pack_wire(jnp.asarray(j_labels)))
+    j_dirs = jp._write_batch([img], j_wire, jcfg, out / "j", ["wide"])
+    with torch.inference_mode():
+        labels = tp._device_labels([img], t_cost, cfg, torch.device("cpu"))
+    t_dirs = tp.compress_arrays([img], t_cost, cfg, out / "t", ["wide"],
+                                device="cpu")
+    return img, j_labels, labels.numpy(), j_wire, tp._pack_wire(labels), \
+        j_dirs[0], t_dirs[0]
+
+
+def test_non_square_image_matches_reference(wide_run):
+    """Labels, wire bits, metadata.bin bytes and decoded slice pixels equal
+    the reference's, and the slices reassemble losslessly."""
+    img, j_labels, t_labels, j_wire, t_wire, jd, td = wide_run
+    np.testing.assert_array_equal(j_labels, t_labels)
+    for ref, got in zip(j_wire, t_wire):
+        np.testing.assert_array_equal(ref, got)
+    assert (td / "metadata.bin").read_bytes() == \
+        (jd / "metadata.bin").read_bytes()
+    names = sorted(p.name for p in jd.glob("slice_*.png"))
+    assert names == sorted(p.name for p in td.glob("slice_*.png"))
+    assert len(names) > 1  # the slicing was kept
+    for name in names:
+        np.testing.assert_array_equal(load_image(td / name),
+                                      load_image(jd / name))
+    np.testing.assert_array_equal(reassemble_array(td), ensure_rgba(img))
