@@ -20,15 +20,28 @@ Phases, each printing one line with its own seconds:
      costs the solver must repeat bit for bit and, rounded to 1/16, give
      the CPU's labels; its regions per image before the fallback are
      printed. Slices are reassembled and must be pixel-lossless, and every
-     kernel of the path must have launched in each run.
+     kernel of the path must have launched in each run. Then the 8 x
+     256x256 batch again at the reference's shipped hier_agg="pixel", and
+     8 tiny 12x12 images (the tiny-grid ensemble): lossless, with images/s,
+     stage seconds and slices per image; neither reaches the leaf kernel,
+     so their launch counts are printed but not checked;
+  4. solver configurations: threefry coin bits drawn on the card equal the
+     CPU's; the tiny-grid ensemble (4 x 12x12, 2 x 8x40), random_mate with
+     8 ICM sweeps and pixel aggregation (2 x 64x64), and the sorted path's
+     mutual and hybrid modes with the tile presolve (2 x 64x64) give the
+     CPU's labels bit for bit on integer costs;
+  5. a 3648x5472 cost field (19.96 Mpx, past 2^24 pixels) through
+     multicut_grid at the shipped settings: every label is the smallest
+     flat index of its region and the leaf kernel launched; its seconds
+     and peak memory are printed.
 Then one JSON line describing each kernel, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line. Without a GPU (and without --device cpu) the
 script exits non-zero at once.
 
---device cpu --small runs phases 0 and 3 on the CPU at 64x64 (and one
-48x80 image) with a base-8 U-Net, through the plain versions of the
-kernels.
+--device cpu --small runs phases 0, 3 and 4 on the CPU at 64x64 (and one
+48x80 image; the tiny cases as they are) with a base-8 U-Net, through the
+plain versions of the kernels, and no 3648x5472 field.
 """
 
 from __future__ import annotations
@@ -249,7 +262,7 @@ def make_images(n: int, height: int, width: int,
                 seed: int) -> list[np.ndarray]:
     """Seeded uint8 RGB test images: each quadrant one of five patterns
     (flat colour, gradient, uniform noise, repeating tile, low-amplitude
-    noise), rotated across images. Sides are multiples of 16."""
+    noise), rotated across images. Sides are even."""
     rng = np.random.default_rng(seed)
     h, w = height // 2, width // 2
     ys, xs = np.mgrid[:h, :w]
@@ -269,7 +282,7 @@ def make_images(n: int, height: int, width: int,
                 patch = rng.integers(0, 256, (h, w, 3), np.uint8)
             elif kind == 3:
                 patch = np.tile(rng.integers(0, 256, (8, 8, 3), np.uint8),
-                                (h // 8, w // 8, 1))
+                                (-(-h // 8), -(-w // 8), 1))[:h, :w]
             else:
                 patch = (rng.integers(0, 12, (h, w, 3))
                          + rng.integers(0, 240, 3)).astype(np.uint8)
@@ -300,13 +313,12 @@ def check_solver_on_batch(torch, solve, costs, device: str) -> None:
     log(msg)
 
 
-def phase_main(torch, device: str,
-               runs: list[tuple[int, int, int, float]],
-               base: int) -> list[int]:
+def phase_main(torch, device: str, runs: list[dict], base: int) -> list[int]:
     """The solver on the device against the CPU, then compress_arrays ->
     reassemble on seeded images with a seeded full-width U-Net, one run per
-    (batch, height, width, mu bias); returns the leaf kernel's launches of
-    each run."""
+    entry of `runs` (batch, height, width, mu bias, hier_agg, and whether
+    the run must keep a slicing and launch the leaf kernel); returns the
+    leaf kernel's launches of each run."""
     from image_compression_torch import pipeline
     from image_compression_torch.config import Config
     from image_compression_torch.io.image_io import ensure_rgba
@@ -320,20 +332,9 @@ def phase_main(torch, device: str,
         # "connect", so that some images of every batch keep a slicing and
         # the solver's labels reach merging, the slicer and the writer
         model = init_random_(EdgeUNet(base=base), seed=0).to(device).eval()
-        cfg = Config()  # shipped settings; the port's solver is "matrix"
-        assert cfg.multicut.hier_agg == "matrix"
 
         def cost_fn(b):
             return pipeline.learned_costs(model, b)
-
-        def solve(costs):
-            mc = cfg.multicut
-            return pipeline.segment_batch(
-                costs, mode=mc.mode, max_rounds=mc.max_rounds,
-                icm_sweeps=mc.icm_sweeps,
-                hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
-                hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
-                hier_leaf=mc.hier_leaf)
 
         # the solver on the device agrees with the CPU, on a square input
         # and on a non-square one (sorted finishing rounds)
@@ -348,10 +349,25 @@ def phase_main(torch, device: str,
         log("  solver labels equal the CPU's on 2 x 64x64 and 2 x 96x160")
 
         all_launches = []
-        for i, (batch, height, width, bias) in enumerate(runs):
+        for run in runs:
+            batch, height, width = run["batch"], run["height"], run["width"]
+            cfg = Config()  # shipped settings, with the run's aggregation
+            cfg.multicut.hier_agg = run["agg"]
+            mc = cfg.multicut
+
+            def solve(costs):
+                return pipeline.segment_batch(
+                    costs, mode=mc.mode, max_rounds=mc.max_rounds,
+                    icm_sweeps=mc.icm_sweeps,
+                    hier_rounds=(tuple(mc.hier_rounds) if mc.hier_rounds
+                                 else None),
+                    hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
+                    hier_leaf=mc.hier_leaf,
+                    matchings_per_round=mc.matchings_per_round)
+
             with torch.no_grad():
-                model.outc.bias[0::2] = bias
-            images = make_images(batch, height, width, seed=1 + i)
+                model.outc.bias[0::2] = run["bias"]
+            images = make_images(batch, height, width, seed=run["seed"])
             names = [f"img{j}" for j in range(batch)]
             # outputs are right: finite costs of the right shape
             with torch.inference_mode():
@@ -382,21 +398,122 @@ def phase_main(torch, device: str,
                         raise AssertionError(f"{d.name}: reassembly not "
                                              "lossless")
                     n_slices.append(len(list(d.glob("slice_*.png"))))
-            if max(n_slices) < 2:
+            if run["need_slices"] and max(n_slices) < 2:
                 raise AssertionError("every image fell back to one slice: "
                                      "the solver's labels reached no "
                                      "slicer or writer")
-            log(f"  {batch} images {height}x{width}, mu bias {bias}: "
+            log(f"  {batch} images {height}x{width}, hier_agg "
+                f"{run['agg']!r}, mu bias {run['bias']}: "
                 f"{batch / elapsed:.3f} images/s ({elapsed:.3f} s); slices "
                 f"per image {n_slices}; lossless")
             log("  stage seconds: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in timings.items()))
-            log(f"  multicut_leaf launches: {launches}")
-            if device == "cuda" and launches < 1:
-                raise AssertionError("the main path did not launch the leaf "
-                                     "kernel")
+            if run["check_leaf"]:
+                log(f"  multicut_leaf launches: {launches}")
+                if device == "cuda" and launches < 1:
+                    raise AssertionError("the main path did not launch the "
+                                         "leaf kernel")
+            else:
+                log(f"  multicut_leaf launches: {launches} (not checked: "
+                    f"{run['why_no_leaf']})")
             all_launches.append(launches)
     return all_launches
+
+
+def phase_solver_configs(torch, device: str) -> None:
+    """Solver configurations beyond the compress defaults, on the device
+    against the CPU, labels bitwise on integer costs: the tiny-grid
+    ensemble, random_mate with ICM and pixel aggregation, the sorted path's
+    mutual and hybrid modes (tile presolve, boundary and full rounds); and
+    threefry coin bits drawn on the device against the CPU's."""
+    from image_compression_torch.ops import prng
+    from image_compression_torch.ops.multicut import multicut_grid
+
+    with phase("solver configurations"):
+        for salt, shape in ((0, (4096,)), (50_003, (27, 64)),
+                            (90_001, (3, 256)), (2 ** 31 - 1, (1_000_003,))):
+            key = prng.fold_in(prng.prng_key(3), salt)
+            on_dev = prng.random_bits(key, shape, device).cpu()
+            if not torch.equal(on_dev, prng.random_bits(key, shape)):
+                raise AssertionError(f"coin bits differ on {device}, salt "
+                                     f"{salt}")
+        log(f"  threefry bits on {device} equal the CPU's (4 keys, up to "
+            "1,000,003 words)")
+        cases = [
+            ("tiny ensemble", (4, 12, 12), {}),
+            ("tiny ensemble", (2, 8, 40), {}),
+            ("random_mate, 8 ICM sweeps, pixel agg", (2, 64, 64),
+             dict(mode="random_mate", icm_sweeps=8, hier_agg="pixel")),
+            ("mutual (sorted path, presolve)", (2, 64, 64),
+             dict(mode="mutual")),
+            ("hybrid (sorted path, presolve)", (2, 64, 64),
+             dict(mode="hybrid")),
+        ]
+        rng = np.random.default_rng(6)
+        for name, shape, kw in cases:
+            costs = torch.as_tensor(rng.integers(
+                -8, 9, shape + (2,)).astype(np.float32))
+            t0 = time.perf_counter()
+            got = multicut_grid(costs.to(device), **kw).cpu()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            msg = (f"  {name} {shape[0]} x {shape[1]}x{shape[2]}: "
+                   f"{dt:.4f} s on {device}, regions "
+                   f"{[int(torch.unique(g).numel()) for g in got]}")
+            if device == "cuda":
+                if not torch.equal(got, multicut_grid(costs, **kw)):
+                    raise AssertionError(f"{name} {shape}: labels differ "
+                                         "from the CPU's")
+                msg += "; labels equal the CPU's"
+            log(msg)
+
+
+def phase_big_field(torch) -> None:
+    """One 3648x5472 integer cost field (19.96 Mpx, past 2^24 pixels)
+    through multicut_grid at the shipped settings: every label must be the
+    smallest flat index of its region, and the leaf kernel must launch.
+    Solve only: no slices are written."""
+    from image_compression_torch.config import Config
+    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.ops.multicut import multicut_grid
+
+    height, width = 3648, 5472
+    n = height * width
+    mc = Config().multicut
+    with phase("3648x5472 solve"):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        costs = torch.randint(-3, 9, (1, height, width, 2), generator=gen,
+                              device="cuda").to(torch.float32)
+        kw = dict(mode=mc.mode, max_rounds=mc.max_rounds,
+                  icm_sweeps=mc.icm_sweeps, hier_rounds=tuple(mc.hier_rounds),
+                  hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
+                  hier_leaf=mc.hier_leaf)
+        multicut_grid(costs[:, :512, :512], **kw)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        multicut_leaf.launches = 0
+        t0 = time.perf_counter()
+        labels = multicut_grid(costs, **kw)[0]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = multicut_leaf.launches
+        peak = torch.cuda.max_memory_allocated()
+        flat = labels.reshape(-1).long()
+        idx = torch.arange(n, device="cuda")
+        mins = torch.full((n,), n, device="cuda", dtype=torch.int64
+                          ).scatter_reduce(0, flat, idx, "amin")
+        if not bool((mins[flat] == flat).all()):
+            raise AssertionError("3648x5472: a label is not the smallest "
+                                 "flat index of its region")
+        if launches < 1:
+            raise AssertionError("3648x5472: the leaf kernel did not launch")
+        regions = int(torch.unique(flat).numel())
+        past = int(torch.unique(flat[flat >= 2 ** 24]).numel())
+        log(f"  {height}x{width} ({n} px): {seconds:.3f} s, peak "
+            f"{peak / 2 ** 30:.2f} GiB allocated, {regions} regions "
+            f"({past} labelled past 2^24), leaf launches {launches}; every "
+            "label is its region's smallest flat index")
 
 
 def main(argv=None) -> int:
@@ -415,13 +532,27 @@ def main(argv=None) -> int:
 
     side, base = (64, 8) if args.small else (256, 64)
     batch = 8
+
+    def run(batch, height, width, bias, seed, agg="matrix", need_slices=True,
+            why_no_leaf=None):
+        return dict(batch=batch, height=height, width=width, bias=bias,
+                    seed=seed, agg=agg, need_slices=need_slices,
+                    check_leaf=why_no_leaf is None, why_no_leaf=why_no_leaf)
+
     # the square batch first (its launches go into the kernels line), then
-    # a non-square batch that finishes with the sorted rounds; (batch,
-    # height, width, mu bias). The sorted finish has no slot caps and joins
-    # every pair of regions whose summed cost is > 0: at a lean of 1.0 the
-    # non-square batch kept no slicing (PERF.md, section 4), at 0.8 it does
-    runs = [(batch, side, side, 1.0)] + ([(1, 48, 80, 1.0)] if args.small
-                                         else [(4, 256, 384, 0.8)])
+    # a non-square batch that finishes with the sorted rounds. The sorted
+    # finish has no slot caps and joins every pair of regions whose summed
+    # cost is > 0: at a lean of 1.0 the non-square batch kept no slicing
+    # (PERF.md, section 4), at 0.8 it does. Then the square batch again
+    # with the reference's shipped pixel aggregation, and 8 tiny images
+    # (the tiny-grid ensemble), neither of which runs the leaf kernel
+    runs = [run(batch, side, side, 1.0, seed=1),
+            run(1, 48, 80, 1.0, seed=2) if args.small
+            else run(4, 256, 384, 0.8, seed=2),
+            run(batch, side, side, 1.0, seed=1, agg="pixel",
+                why_no_leaf="pixel aggregation has no leaf kernel"),
+            run(batch, 12, 12, 1.0, seed=4, need_slices=False,
+                why_no_leaf="sides under 16 take the sorted ensemble")]
     phase_env(torch, args.device)
     kernels = []
     if args.device == "cuda":
@@ -430,6 +561,9 @@ def main(argv=None) -> int:
         phase_build()
         kernels.append(phase_leaf(torch, batch, side))
     launches = phase_main(torch, args.device, runs, base)
+    phase_solver_configs(torch, args.device)
+    if args.device == "cuda":
+        phase_big_field(torch)
 
     if args.device == "cuda":
         kernels[0]["launches"] = launches[0]

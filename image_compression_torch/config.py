@@ -3,12 +3,9 @@
 The port's own copy of the fields of the reference's `config.py` that
 compress reads (the reference's Config, MulticutConfig and the reward fields
 used by the fallback decision and merge refinement). Defaults are the
-reference's shipped defaults, except `MulticutConfig.hier_agg`: the port's
-solver is the slot-space ("matrix") aggregation, which makes the same merges
-as the reference's default "pixel" aggregation (bit-identical on
-integer-valued costs) and is the configuration that runs the multicut leaf
-kernel. Values that only a later slice of the port implements are rejected
-where they are read (pipeline.segment_batch).
+reference's shipped defaults, except `MulticutConfig.hier_agg` (see there).
+Every solver value the reference accepts is accepted; unknown values raise
+where they are read (ops/multicut.multicut_grid).
 """
 
 from __future__ import annotations
@@ -34,18 +31,26 @@ class RewardConfig:
 
 @dataclasses.dataclass
 class MulticutConfig:
-    """Grid multicut settings (the reference's MulticutConfig)."""
+    """Grid multicut settings (the reference's MulticutConfig).
 
-    max_rounds: int = 3               # sorted finishing rounds (fixpoint
-    #                                   bound) where the top supertile does
-    #                                   not cover the image
-    mode: str = "chain"               # only "chain" is ported
-    icm_sweeps: int = 0               # only 0 is ported
+    `hier_agg` defaults to "matrix" where the reference ships "pixel": the
+    slot-space aggregation makes the same merges (bit-identical labels on
+    integer-valued costs) and is the configuration whose levels 0-1 run in
+    the multicut leaf kernel; "pixel" re-aggregates pair costs from
+    pixel-space one-hot products every round and never reaches the kernel.
+    The reference's compress ignores `matchings_per_round` (its
+    segment_batch keeps the solver default 4); the port passes it on."""
+
+    max_rounds: int = 3               # sorted rounds (fixpoint bound)
+    mode: str = "chain"               # chain | mutual | random_mate | hybrid
+    icm_sweeps: int = 0               # local-move sweeps after contraction
+    matchings_per_round: int = 4      # matching passes per sorted round
     hier_rounds: tuple = (2, 1)       # rounds per level (last repeats)
     hier_caps: str | None = "flat64"  # lean_caps preset | None = default caps
-    hier_agg: str = "matrix"          # slot-space pair matrices (only value)
-    hier_leaf: str = "auto"           # "auto"/"fused": levels 0-1 in the leaf
-    #                                   kernel; "unfused": level-by-level loop
+    hier_agg: str = "matrix"          # "matrix" slot-space | "pixel"
+    hier_leaf: str = "auto"           # matrix agg: "auto"/"fused" run levels
+    #                                   0-1 in the leaf kernel; "xla" (or
+    #                                   "unfused") the level-by-level loop
 
 
 @dataclasses.dataclass

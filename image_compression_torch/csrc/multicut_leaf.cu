@@ -21,7 +21,7 @@
 //      maximum with ties to the smallest partner, merging iff it is > 0,
 //      which is the dense rule (dead and non-adjacent slots hold 0 there);
 //   2. hook, break 2-cycles toward the smaller id, three pointer doublings;
-//   3. m (smallest pixel id, f32 bits) by an integer atomicMin per target;
+//   3. m (smallest pixel id, a non-negative int) by an atomicMin per target;
 //   4. relabel the keys through the map, bitonic-sort them, sum each run of
 //      equal keys in sorted order and compact the run heads (ranks from
 //      __ballot_sync + __popc).
@@ -62,7 +62,7 @@ struct Shared {
   unsigned long long best[4 * S0];   // packed (cost, partner) per slot
   int nxt[4 * S0];                   // merge map
   int tmp[4 * S0];
-  unsigned m[4 * S0];                // smallest pixel id per slot (f32 bits)
+  unsigned m[4 * S0];                // smallest pixel id per slot
   unsigned mnew[4 * S0];
   int lab[4 * S0];                   // level 0: pixel -> slot; level 1:
                                      // entry slot -> slot (cmap)
@@ -228,17 +228,16 @@ __device__ int gaec_round(unsigned* key, float* val, int n, int slots,
 
 __global__ void __launch_bounds__(THREADS, 8)
 leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
-            const float* __restrict__ wmid, const float* __restrict__ pix,
+            const float* __restrict__ wmid, const int* __restrict__ pix,
             int* __restrict__ rank_out, int* __restrict__ gid_out,
-            float* __restrict__ sym_out, float* __restrict__ m_out,
+            float* __restrict__ sym_out, int* __restrict__ m_out,
             int* __restrict__ ncand_out, int* __restrict__ over_out, int s1,
-            int r0, int r1, float sentinel_f) {
+            int r0, int r1, unsigned sentinel) {
   __shared__ Shared sh;
   const int tid = threadIdx.x;
   const int q = tid / 32;  // this warp's child (quad order 00, 01, 10, 11)
   const int lane = tid % 32;
   const unsigned below = (1u << lane) - 1u;
-  const unsigned sentinel = __float_as_uint(sentinel_f);
   const size_t tile = blockIdx.x;
   const size_t in0 = tile * 4 * S0;
 
@@ -256,7 +255,7 @@ leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
     val0[2 * p] = has_h ? wh : 0.f;
     key0[2 * p + 1] = has_v ? ((unsigned)p << 16) | (unsigned)(p + 8) : SENT;
     val0[2 * p + 1] = has_v ? wv : 0.f;
-    m0[p] = __float_as_uint(pix[in0 + q * S0 + p]);
+    m0[p] = (unsigned)pix[in0 + q * S0 + p];
     lab0[p] = p;
   }
   __syncwarp();
@@ -306,7 +305,7 @@ leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
     const int cand = r + off[q];
     const bool frozen = cand >= s1;
     gid_out[in0 + q * S0 + p] =
-        frozen ? (int)__uint_as_float(m0c[r]) : 0;
+        frozen ? (int)m0c[r] : 0;
     sh.rank1[q * S0 + p] = frozen ? -1 : cand;
   }
   for (int i = lane; i < sh.count[q]; i += 32) {
@@ -364,12 +363,12 @@ leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
     n_alive += sh.wsum[w];
   }
   const int my_rank = base + __popc(b & below);
-  float* m_tile = m_out + tile * s1;
+  int* m_tile = m_out + tile * s1;
   if (alive) {
     sh.rank[tid] = my_rank;
-    m_tile[my_rank] = __uint_as_float(sh.m[tid]);
+    m_tile[my_rank] = (int)sh.m[tid];
   }
-  for (int k = n_alive + tid; k < s1; k += THREADS) m_tile[k] = sentinel_f;
+  for (int k = n_alive + tid; k < s1; k += THREADS) m_tile[k] = (int)sentinel;
   float* so = sym_out + tile * s1 * s1;
   const int nsym = s1 * s1;
   if (nsym % 4 == 0) {
@@ -398,22 +397,23 @@ leaf_kernel(const float* __restrict__ w0h, const float* __restrict__ w0v,
 
 }  // namespace
 
-// Launch over t1 supertiles on `stream`. Inputs: w0h, w0v, pix [t1, 4, 64]
-// f32 (child-major), wmid [t1, 32] f32. Outputs: rank, gid [t1, 4, 64] i32,
-// sym [t1, s1, s1] f32, m [t1, s1] f32, ncand, over [t1] i32. n_pix = H*W is
-// the min-pixel sentinel. Returns the cudaError_t of the launch.
+// Launch over t1 supertiles on `stream`. Inputs: w0h, w0v [t1, 4, 64] f32
+// (child-major), wmid [t1, 32] f32, pix [t1, 4, 64] i32 pixel ids. Outputs:
+// rank, gid [t1, 4, 64] i32, sym [t1, s1, s1] f32, m [t1, s1] i32, ncand,
+// over [t1] i32. n_pix = H*W >= 0 is the min-pixel sentinel, so every id is
+// exact up to 2^31 - 1 pixels. Returns the cudaError_t of the launch.
 extern "C" int multicut_leaf_launch(const void* w0h, const void* w0v,
                                     const void* wmid, const void* pix,
                                     void* rank, void* gid, void* sym, void* m,
                                     void* ncand, void* over, int t1, int s1,
                                     int r0, int r1, int n_pix, void* stream) {
-  if (t1 < 0 || s1 < 1 || s1 > MAX_S1 || r0 < 0 || r1 < 0)
+  if (t1 < 0 || s1 < 1 || s1 > MAX_S1 || r0 < 0 || r1 < 0 || n_pix < 0)
     return (int)cudaErrorInvalidValue;
   if (t1 == 0) return (int)cudaSuccess;
   leaf_kernel<<<t1, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)w0h, (const float*)w0v, (const float*)wmid,
-      (const float*)pix, (int*)rank, (int*)gid, (float*)sym, (float*)m,
-      (int*)ncand, (int*)over, s1, r0, r1, (float)n_pix);
+      (const int*)pix, (int*)rank, (int*)gid, (float*)sym, (int*)m,
+      (int*)ncand, (int*)over, s1, r0, r1, (unsigned)n_pix);
   return (int)cudaGetLastError();
 }
 

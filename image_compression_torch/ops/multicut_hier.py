@@ -1,31 +1,42 @@
-"""Hierarchical dense GAEC with slot-space ("matrix") pair aggregation.
+"""Hierarchical dense GAEC: the multicut solver's sort-free path.
 
-Port of the matrix path of the reference's ops/multicut_hier.py. The image
-is covered by supertiles whose side doubles per level (8 -> 16 -> ... ->
-min(H, W)); inside a supertile, regions are rank-compacted to a static slot
-count S and the aggregated pair-cost matrix [S, S] is the state:
+Port of the reference's ops/multicut_hier.py. The image is covered by
+supertiles whose side doubles per level (8 -> 16 -> ... -> min(H, W));
+inside a supertile, regions are rank-compacted to a static slot count S and
+the aggregated pair-cost matrix [S, S] is dense and small:
 
-  * a merge round hooks every slot to its most attractive partner (first
-    index of the row maximum, chain mode), breaks 2-cycles, contracts
-    chains by three pointer doublings and aggregates P <- M^T P M;
-  * a level transition offsets the four child ranks, freezes regions that
-    overflow the next level's slot cap (labelled by their smallest pixel
-    index, carried per slot as the min-pixel vector m), embeds the four
-    child matrices and adds the newly active mid-line edges;
-  * pixels carry their region's rank; one slot-map apply per level.
+  * a merge round hooks slots to their most attractive partner (first index
+    of the row maximum) — every slot in chain mode; mutual pairs plus the
+    tail -> head hooks of coins `fold_in(PRNGKey(3), 1000 * level + round)`
+    in random-mate mode; mutual pairs only in mutual mode — breaks
+    2-cycles toward the smaller id and contracts chains by three (chain)
+    or two (otherwise) pointer doublings;
+  * a level transition offsets the four child ranks and freezes the
+    regions that overflow the next level's slot cap, labelled by their
+    smallest pixel index;
+  * pixels carry their region's rank within the current supertile.
 
-Levels 0-1 run in the multicut leaf (ops/multicut_leaf.py: a CUDA kernel on
-the GPU, its plain version on the CPU) when the configuration allows it.
+Two aggregations, the same merges on integer-valued costs:
+  * "matrix": the pair matrix is the state, P <- M^T P M per round; the
+    transition embeds the four child matrices and adds the newly active
+    mid-line edges; a min-pixel vector m per slot labels frozen regions.
+    Levels 0-1 run in the multicut leaf (ops/multicut_leaf.py: a CUDA
+    kernel on the GPU, its plain version on the CPU) in chain mode.
+  * "pixel": every round re-aggregates the pair matrix from the pixel-space
+    edges; freezing takes a masked minimum over the pixels.
 
 Every tensor carries the batch: images are [B, H, W], tile tensors fold the
 batch into their leading dimension ([B * tiles, ...], image-major then tiles
-row-major). Arithmetic mirrors the reference: edge weights are rounded to
-bf16 (round to nearest even) before they are summed in f32, the argmax takes
-the first index, and min-pixel ids are f32 (exact below 2^24, so H * W must
-stay below 2^24). On integer-valued costs every state field is bit-identical
-to the reference; on real-valued costs f32 sums may be grouped differently.
-The f32 matrix products assume PyTorch's default full-precision float32
-matmul (`torch.backends.cuda.matmul.allow_tf32` False).
+row-major). Coins are drawn once at one image's shape [tiles, S] and
+repeated over the batch, as the reference's vmap shares its constant keys.
+Arithmetic mirrors the reference: edge weights are rounded to bf16 (round
+to nearest even) before they are summed in f32, and the argmax takes the
+first index. Min-pixel ids are int32, exact at every image size; the
+reference carries them in f32, exact only up to 2^24 pixels. On
+integer-valued costs every state field is bit-identical to the reference
+there; on real-valued costs f32 sums may be grouped differently. The f32
+matrix products assume PyTorch's default full-precision float32 matmul
+(`torch.backends.cuda.matmul.allow_tf32` False).
 """
 
 from __future__ import annotations
@@ -33,6 +44,8 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+
+from image_compression_torch.ops import prng
 
 # levels 0-1 fit the leaf when its level-1 slot matrix fits the kernel's
 # shared memory (the reference's envelope is caps[1] <= 256; every cap preset
@@ -49,8 +62,10 @@ class HierResult(NamedTuple):
     overflow: torch.Tensor   # [B] int32 regions frozen per image
     top_tile: int            # side of the top-level supertile
     top_slots: int           # slot cap at the top level
-    minpix: torch.Tensor     # [B, T_top, S] f32 min pixel id per slot
-    pair: torch.Tensor       # [B, T_top, S, S] f32 aggregated pair costs
+    minpix: torch.Tensor | None = None  # [B, T_top, S] int32 min pixel id
+    #                          per slot (agg="matrix" only)
+    pair: torch.Tensor | None = None    # [B, T_top, S, S] f32 aggregated
+    #                          pair costs (agg="matrix" only)
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -72,6 +87,12 @@ def _from_tiles(tiles: torch.Tensor, b: int, height: int, width: int,
             .permute(0, 1, 3, 2, 4).reshape(b, height, width))
 
 
+def _pixel_ids(b: int, height: int, width: int, device) -> torch.Tensor:
+    """Flat pixel index of every pixel, [B, H, W] int32."""
+    return (torch.arange(height * width, dtype=torch.int32, device=device)
+            .reshape(1, height, width).expand(b, height, width))
+
+
 def _take(vec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """vec[t, idx[t, i]]; an index outside [0, S) reads 0, as the
     reference's one-hot lookups do."""
@@ -88,8 +109,53 @@ def _one_hot(idx: torch.Tensor, slots: int) -> torch.Tensor:
     return (idx.unsqueeze(-1) == cols).to(torch.float32)
 
 
+def first_argmax(sym: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
+    """First index of each row's maximum `best` of sym [T, S, S]."""
+    slots = sym.shape[-1]
+    cols = torch.arange(slots, device=sym.device)
+    return torch.where(sym == best.unsqueeze(-1), cols, slots).amin(dim=-1)
+
+
+def _hook(sym: torch.Tensor, mode: str, coin: torch.Tensor | None
+          ) -> torch.Tensor:
+    """One round's slot map [T, S] from the pair matrices [T, S, S]: hook
+    (chain: every slot with an attractive best partner; mutual: mutual best
+    pairs; random_mate: those plus tail -> head hooks of `coin`), break
+    2-cycles toward the smaller id, then 3 (chain) or 2 pointer
+    doublings."""
+    t_count, slots = sym.shape[:2]
+    ids = torch.arange(slots, device=sym.device).expand(t_count, slots)
+    best = sym.amax(dim=-1)
+    partner = first_argmax(sym, best)
+    merge = best > 0.0
+    if mode != "chain":
+        partner_safe = torch.where(merge, partner, 0)
+        mutual = merge & (_take(partner, partner_safe) == ids)
+        if mode == "mutual":
+            merge = mutual
+        else:
+            merge = mutual | (merge & ~coin & _take(coin, partner_safe))
+    nxt = torch.where(merge, partner, ids)
+    nn = _take(nxt, nxt)
+    nxt = torch.where((nn == ids) & (ids < nxt), ids, nxt)
+    for _ in range(3 if mode == "chain" else 2):
+        nxt = _take(nxt, nxt)
+    return nxt
+
+
+def _round_coins(mode: str, salt: int, t_count: int, slots: int,
+                 batch: int, device) -> torch.Tensor | None:
+    """Random-mate coins of one round in the [B * tiles, S] layout:
+    bernoulli(fold_in(PRNGKey(3), salt), 0.5, [tiles of one image, S]),
+    repeated over the images; None in the other modes."""
+    if mode != "random_mate":
+        return None
+    return prng.bernoulli(prng.fold_in(prng.prng_key(3), salt), 0.5,
+                          (t_count // batch, slots), device).repeat(batch, 1)
+
+
 def _remap(sym: torch.Tensor, m: torch.Tensor, tgt: torch.Tensor,
-           sentinel: float) -> tuple[torch.Tensor, torch.Tensor]:
+           sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Aggregate the pair matrix and min-pixel vector through the slot map
     tgt [T, S] (-1 drops a slot): sym'[A, B] = sum over a -> A, b -> B of
     sym[a, b]; m'[A] = min over a -> A of m[a], the sentinel if none."""
@@ -103,25 +169,22 @@ def _remap(sym: torch.Tensor, m: torch.Tensor, tgt: torch.Tensor,
 
 
 def _matrix_rounds(sym: torch.Tensor, m: torch.Tensor, rounds: int,
-                   sentinel: float):
-    """Chain-mode GAEC rounds in slot space, then dense re-ranking.
+                   sentinel: int, mode: str = "chain", level_salt: int = 0,
+                   batch: int = 1):
+    """GAEC rounds in slot space, then dense re-ranking.
 
-    sym [T, S, S] f32, m [T, S] f32. Returns (sym, m, cmap, n_alive): cmap
-    [T, S] int64 maps entry ranks to final dense ranks (entries of slots
-    that were dead on entry are unused), n_alive [T] int64."""
+    sym [T, S, S] f32, m [T, S] int32 (T = batch * tiles per image).
+    Returns (sym, m, cmap, n_alive): cmap [T, S] int64 maps entry ranks to
+    final dense ranks (entries of slots that were dead on entry are unused),
+    n_alive [T] int64."""
     t_count, slots = m.shape
     ids = torch.arange(slots, device=m.device).expand(t_count, slots)
     off_diag = 1.0 - torch.eye(slots, device=m.device)
     cmap = ids
-    for _ in range(rounds):
-        best = sym.amax(dim=-1)
-        partner = torch.where(sym == best.unsqueeze(-1), ids.unsqueeze(1),
-                              slots).amin(dim=-1)   # first index of the max
-        nxt = torch.where(best > 0.0, partner, ids)
-        nn = _take(nxt, nxt)
-        nxt = torch.where((nn == ids) & (ids < nxt), ids, nxt)
-        for _ in range(3):  # chain-mode pointer doublings
-            nxt = _take(nxt, nxt)
+    for r in range(rounds):
+        coin = _round_coins(mode, level_salt + r, t_count, slots, batch,
+                            m.device)
+        nxt = _hook(sym, mode, coin)
         sym, m = _remap(sym, m, nxt, sentinel)
         sym = sym * off_diag
         cmap = _take(nxt, cmap)
@@ -135,7 +198,7 @@ def _matrix_rounds(sym: torch.Tensor, m: torch.Tensor, rounds: int,
 
 
 def _embed_children(p4: torch.Tensor, m4: torch.Tensor, off4: torch.Tensor,
-                    slots: int, sentinel: float):
+                    slots: int, sentinel: int):
     """Embed four child pair matrices p4 [T, 4, Sp, Sp] and min-pixel
     vectors m4 [T, 4, Sp] at rank offsets off4 [T, 4] into [T, S, S] / [T, S];
     candidates >= S (frozen) drop out."""
@@ -147,20 +210,28 @@ def _embed_children(p4: torch.Tensor, m4: torch.Tensor, off4: torch.Tensor,
     sym = torch.bmm(emb_f.transpose(1, 2), x.reshape(t_count, 4 * prev,
                                                      slots))
     keep = (cand < slots).reshape(t_count, -1)
-    m = torch.full((t_count, slots), sentinel, device=p4.device)
+    m = torch.full((t_count, slots), sentinel, dtype=m4.dtype,
+                   device=p4.device)
     m = m.scatter_reduce(1, cand.reshape(t_count, -1).clamp(max=slots - 1),
                          torch.where(keep, m4.reshape(t_count, -1), sentinel),
                          "amin")
     return sym, m
 
 
-def _edge_pairs(a_e: torch.Tensor, b_e: torch.Tensor, w_e: torch.Tensor,
-                slots: int) -> torch.Tensor:
-    """Pair matrix [T, S, S] of an edge list: sum of the bf16-rounded weights
+def _pair_matrix(a_e: torch.Tensor, b_e: torch.Tensor, w_e: torch.Tensor,
+                 slots: int) -> torch.Tensor:
+    """Pair matrix [T, S, S] of an edge list: the f32 sum of the weights
     w_e [T, E] of the edges whose endpoint ranks are (a_e, b_e); endpoints
     outside [0, S) (frozen, -1) contribute nothing."""
-    oh_aw = _one_hot(a_e, slots) * bf16_round(w_e).unsqueeze(-1)
+    oh_aw = _one_hot(a_e, slots) * w_e.unsqueeze(-1)
     return torch.bmm(oh_aw.transpose(1, 2), _one_hot(b_e, slots))
+
+
+def _edge_pairs(a_e: torch.Tensor, b_e: torch.Tensor, w_e: torch.Tensor,
+                slots: int) -> torch.Tensor:
+    """`_pair_matrix` of the bf16-rounded weights (the hierarchy's bf16
+    operands with f32 accumulation; the products are exact in f32)."""
+    return _pair_matrix(a_e, b_e, bf16_round(w_e), slots)
 
 
 def _level_weights(costs: torch.Tensor, s: int) -> torch.Tensor:
@@ -199,13 +270,24 @@ def _pair_from_pixels(rank_img: torch.Tensor, costs: torch.Tensor, s: int,
     return sym * (1.0 - torch.eye(slots, device=sym.device))
 
 
-def _matrix_transition(rank_img, ncand, sym, m, frozen, final_gid, overflow,
-                       costs, prev_s: int, prev_slots: int, s: int,
-                       slots: int):
-    """Level transition in slot space: offset child ranks, freeze overflow
-    (labels straight from m), embed the four child pair matrices, add the
-    newly active mid-line edges."""
-    b, height, width = rank_img.shape
+def _slot_min(ranks_t: torch.Tensor, pix_t: torch.Tensor, slots: int,
+              sentinel: int) -> torch.Tensor:
+    """Smallest pixel id per slot [T, S] over the pixels of each tile
+    carrying that rank (frozen pixels, rank -1, excluded); the sentinel
+    where no pixel does."""
+    keep = ranks_t >= 0
+    return torch.full((ranks_t.shape[0], slots), sentinel,
+                      dtype=pix_t.dtype, device=pix_t.device).scatter_reduce(
+        1, ranks_t.clamp(min=0).long(), torch.where(keep, pix_t, sentinel),
+        "amin")
+
+
+def _child_offsets(ncand: torch.Tensor, b: int, height: int, width: int,
+                   prev_s: int, s: int):
+    """Level transition offsets: each child tile's ranks shift by the live
+    regions of the children before it (quad order 00, 01, 10, 11). Returns
+    (off4 [B * T', 4], off_img [B, H, W], live regions per new tile
+    [B, th, tw])."""
     th_p, tw_p = height // prev_s, width // prev_s
     th_n, tw_n = height // s, width // s
     counts = ncand.reshape(b, th_p, tw_p)
@@ -219,6 +301,18 @@ def _matrix_transition(rank_img, ncand, sym, m, frozen, final_gid, overflow,
                 .reshape(b, th_p, tw_p))
     off_img = (off_prev.repeat_interleave(prev_s, dim=1)
                .repeat_interleave(prev_s, dim=2))
+    return off4.reshape(-1, 4), off_img, c00 + c01 + c10 + c11
+
+
+def _matrix_transition(rank_img, ncand, sym, m, frozen, final_gid, overflow,
+                       costs, prev_s: int, prev_slots: int, s: int,
+                       slots: int):
+    """Level transition in slot space: offset child ranks, freeze overflow
+    (labels straight from m), embed the four child pair matrices, add the
+    newly active mid-line edges."""
+    b, height, width = rank_img.shape
+    th_n, tw_n = height // s, width // s
+    off4, off_img, live = _child_offsets(ncand, b, height, width, prev_s, s)
     cand_img = rank_img + off_img
     newly = ~frozen & (rank_img >= 0) & (cand_img >= slots)
     ranks_pt = _to_tiles(rank_img, prev_s)
@@ -227,15 +321,14 @@ def _matrix_transition(rank_img, ncand, sym, m, frozen, final_gid, overflow,
     final_gid = torch.where(newly, minpix, final_gid)
     frozen = frozen | newly
     rank_img = torch.where(frozen, -1, cand_img)
-    overflow = overflow + (c00 + c01 + c10 + c11 - slots).clamp(
-        min=0).sum(dim=(1, 2)).to(torch.int32)
+    overflow = overflow + (live - slots).clamp(min=0).sum(
+        dim=(1, 2)).to(torch.int32)
 
     p4 = (sym.reshape(b, th_n, 2, tw_n, 2, prev_slots, prev_slots)
           .permute(0, 1, 3, 2, 4, 5, 6).reshape(-1, 4, prev_slots, prev_slots))
     m4 = (m.reshape(b, th_n, 2, tw_n, 2, prev_slots)
           .permute(0, 1, 3, 2, 4, 5).reshape(-1, 4, prev_slots))
-    sym_new, m_new = _embed_children(p4, m4, off4.reshape(-1, 4), slots,
-                                     float(height * width))
+    sym_new, m_new = _embed_children(p4, m4, off4, slots, height * width)
 
     # newly active edges: the two mid-lines of each new tile
     half = s // 2
@@ -259,31 +352,33 @@ def _matrix_transition(rank_img, ncand, sym, m, frozen, final_gid, overflow,
 
 def _apply_slot_map(rank_img: torch.Tensor, cmap: torch.Tensor,
                     s: int) -> torch.Tensor:
-    """Remap pixel ranks through the level's composed slot map (frozen stay
-    frozen): the one per-level pixel-space op of the matrix path."""
+    """Remap pixel ranks through a slot map (frozen stay frozen)."""
     b, height, width = rank_img.shape
     ranks_t = _to_tiles(rank_img, s)
     new_t = torch.where(ranks_t < 0, -1, _take(cmap, ranks_t))
     return _from_tiles(new_t, b, height, width, s)
 
 
-def leaf_applies(sides: Sequence[int], caps: Sequence[int]) -> bool:
-    """Whether levels 0-1 fit the multicut leaf: base 8, 64 level-0 slots,
-    at least two levels and a level-1 cap the kernel holds."""
-    return (len(sides) >= 2 and sides[0] == 8 and int(caps[0]) == 64
-            and int(caps[1]) <= LEAF_MAX_S1)
+def leaf_applies(sides: Sequence[int], caps: Sequence[int],
+                 mode: str) -> bool:
+    """Whether levels 0-1 fit the multicut leaf: chain mode, base 8, 64
+    level-0 slots, at least two levels and a level-1 cap the kernel
+    holds."""
+    return (mode == "chain" and len(sides) >= 2 and sides[0] == 8
+            and int(caps[0]) == 64 and int(caps[1]) <= LEAF_MAX_S1)
 
 
-def _hier_gaec_matrix(costs, sides, caps, rounds_per_level,
+def _hier_gaec_matrix(costs, sides, caps, rounds_per_level, mode: str,
                       leaf: str) -> HierResult:
     b, height, width, _ = costs.shape
-    sentinel = float(height * width)
+    sentinel = height * width
     dev = costs.device
-    if leaf == "fused" and not leaf_applies(sides, caps):
-        raise ValueError("leaf='fused' needs base 8, caps[0]=64, "
-                         f"caps[1]<={LEAF_MAX_S1} and >=2 levels; got "
-                         f"sides={sides} caps={list(caps)[:2]}")
-    if leaf in ("auto", "fused") and leaf_applies(sides, caps):
+    if leaf == "fused" and not leaf_applies(sides, caps, mode):
+        raise ValueError("leaf='fused' needs mode='chain', base 8, "
+                         f"caps[0]=64, caps[1]<={LEAF_MAX_S1} and >=2 "
+                         f"levels; got sides={sides} caps={list(caps)[:2]} "
+                         f"mode={mode}")
+    if leaf in ("auto", "fused") and leaf_applies(sides, caps, mode):
         from image_compression_torch.ops.multicut_leaf import (
             leaf_levels_fused)
         (rank_img, ncand, frozen, final_gid, overflow, sym,
@@ -301,10 +396,9 @@ def _hier_gaec_matrix(costs, sides, caps, rounds_per_level,
         rank_img = ((ys % s0) * s0 + (xs % s0)).expand(b, height, width)
         sym = _pair_from_pixels(rank_img, costs, s0, slots0)
         # level-0 ranks are the local pixel index: m is the pixel id itself
-        m = _to_tiles((ys * width + xs).expand(b, height, width),
-                      s0).to(torch.float32)
-        sym, m, cmap, ncand = _matrix_rounds(sym, m, int(rounds_per_level[0]),
-                                             sentinel)
+        m = _to_tiles(_pixel_ids(b, height, width, dev), s0)
+        sym, m, cmap, ncand = _matrix_rounds(
+            sym, m, int(rounds_per_level[0]), sentinel, mode, 0, b)
         rank_img = _apply_slot_map(rank_img, cmap, s0)
         first = 1
 
@@ -313,16 +407,99 @@ def _hier_gaec_matrix(costs, sides, caps, rounds_per_level,
         rank_img, sym, m, frozen, final_gid, overflow = _matrix_transition(
             rank_img, ncand, sym, m, frozen, final_gid, overflow, costs,
             sides[i - 1], int(caps[i - 1]), s, slots)
-        sym, m, cmap, ncand = _matrix_rounds(sym, m, int(rounds_per_level[i]),
-                                             sentinel)
+        sym, m, cmap, ncand = _matrix_rounds(
+            sym, m, int(rounds_per_level[i]), sentinel, mode, 1000 * i, b)
         rank_img = _apply_slot_map(rank_img, cmap, s)
 
     slots = int(caps[-1])
     return HierResult(rank_img.to(torch.int32),
                       ncand.reshape(b, -1).to(torch.int32), frozen,
                       final_gid.to(torch.int32), overflow.to(torch.int32),
-                      sides[-1], slots, minpix=m.reshape(b, -1, slots),
+                      sides[-1], slots,
+                      minpix=m.reshape(b, -1, slots).to(torch.int32),
                       pair=sym.reshape(b, -1, slots, slots))
+
+
+def _dense_rounds(rank_img: torch.Tensor, w_e: torch.Tensor, s: int,
+                  slots: int, rounds: int, mode: str, level_salt: int,
+                  identity_first: bool = False):
+    """Pixel-aggregation GAEC rounds at one level. rank_img [B, H, W] with
+    ranks in [0, slots) (-1 frozen), w_e [B * T, 2 * s * s] the level's edge
+    weights. Returns (rank_img, n_alive [B * T]) with ranks re-compacted.
+
+    identity_first: entry ranks are the identity (level 0), so round 0's
+    pair matrix is the horizontal weights on the +1 band and the vertical
+    weights on the +s band (one edge per pair: equal to the aggregation)."""
+    b, height, width = rank_img.shape
+    w_bf = bf16_round(w_e)
+    t_count = w_e.shape[0]
+    dev = rank_img.device
+    for r in range(rounds):
+        if identity_first and r == 0 and slots == s * s:
+            whb, wvb = w_bf[:, :s * s], w_bf[:, s * s:]
+            rr = torch.arange(slots, device=dev)[:, None]
+            cc = torch.arange(slots, device=dev)[None, :]
+            band_r = ((cc == rr + 1) & (rr % s != s - 1)).to(torch.float32)
+            band_d = (cc == rr + s).to(torch.float32)
+            sym = (whb[:, :, None] * band_r + wvb[:, :, None] * band_d
+                   + whb[:, None, :] * band_r.T + wvb[:, None, :] * band_d.T)
+        else:
+            a, bb = _edge_endpoint_ranks(rank_img, s)
+            we = torch.where((a != bb) & (w_e != 0.0), w_bf, 0.0)
+            pair = _pair_matrix(a, bb, we, slots)
+            sym = pair + pair.transpose(1, 2)
+        coin = _round_coins(mode, level_salt + r, t_count, slots, b, dev)
+        rank_img = _apply_slot_map(rank_img, _hook(sym, mode, coin), s)
+
+    # compact: re-rank the live slots (those some unfrozen pixel carries)
+    ranks_t = _to_tiles(rank_img, s)
+    alive = torch.zeros((t_count, slots), dtype=torch.int64,
+                        device=dev).scatter_reduce(
+        1, ranks_t.clamp(min=0).long(), (ranks_t >= 0).long(), "amax")
+    new_rank = torch.cumsum(alive, dim=1) - 1
+    return _apply_slot_map(rank_img, new_rank, s), new_rank[:, -1] + 1
+
+
+def _hier_gaec_pixel(costs, sides, caps, rounds_per_level,
+                     mode: str) -> HierResult:
+    b, height, width, _ = costs.shape
+    n = height * width
+    dev = costs.device
+    pix = _pixel_ids(b, height, width, dev)
+    overflow = torch.zeros(b, dtype=torch.int32, device=dev)
+    frozen = torch.zeros((b, height, width), dtype=torch.bool, device=dev)
+    final_gid = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
+    ncand = None
+    for i, s in enumerate(sides):
+        slots = int(caps[i])
+        if i == 0:
+            ys = torch.arange(height, device=dev)[:, None]
+            xs = torch.arange(width, device=dev)[None, :]
+            rank_img = ((ys % s) * s + (xs % s)).expand(b, height, width)
+        else:
+            # offset each child's dense ranks; freeze whole regions that do
+            # not fit the cap under their smallest pixel index
+            prev_s, prev_slots = sides[i - 1], int(caps[i - 1])
+            _, off_img, live = _child_offsets(ncand, b, height, width,
+                                              prev_s, s)
+            cand_img = rank_img + off_img
+            newly = ~frozen & (rank_img >= 0) & (cand_img >= slots)
+            ranks_pt = _to_tiles(rank_img, prev_s)
+            mins_p = _slot_min(ranks_pt, _to_tiles(pix, prev_s), prev_slots,
+                               n)
+            minpix = _from_tiles(_take(mins_p, ranks_pt.clamp(min=0)), b,
+                                 height, width, prev_s)
+            final_gid = torch.where(newly, minpix, final_gid)
+            frozen = frozen | newly
+            rank_img = torch.where(frozen, -1, cand_img)
+            overflow = overflow + (live - slots).clamp(min=0).sum(
+                dim=(1, 2)).to(torch.int32)
+        rank_img, ncand = _dense_rounds(
+            rank_img, _level_weights(costs, s), s, slots,
+            int(rounds_per_level[i]), mode, 1000 * i, identity_first=(i == 0))
+    return HierResult(rank_img.to(torch.int32),
+                      ncand.reshape(b, -1).to(torch.int32), frozen,
+                      final_gid, overflow, sides[-1], int(caps[-1]))
 
 
 def plan_levels(height: int, width: int, base: int = 8) -> list[int]:
@@ -361,24 +538,29 @@ def lean_caps(sides: Sequence[int], kind: str = "half") -> list[int]:
     raise ValueError(f"unknown caps kind: {kind}")
 
 
-def hier_gaec(costs_bhw2: torch.Tensor, base: int = 8,
+def hier_gaec(costs_bhw2: torch.Tensor, mode: str = "chain", base: int = 8,
               rounds_per_level: Sequence[int] | None = None,
-              caps: Sequence[int] | None = None,
+              caps: Sequence[int] | None = None, agg: str = "matrix",
               leaf: str = "auto") -> HierResult:
-    """Run the chain-mode hierarchy with matrix aggregation over all
-    divisible levels of a batch of cost planes [B, H, W, 2].
+    """Run the hierarchy over all divisible levels of a batch of cost planes
+    [B, H, W, 2].
 
-    leaf selects how levels 0-1 run: "auto" uses the multicut leaf
-    (ops/multicut_leaf.py) whenever it applies, "fused" requires it,
-    "unfused" runs the level-by-level loop. Same merges either way
-    (bit-identical on integer-valued costs)."""
+    mode: "chain", "random_mate" or "mutual". agg: "matrix" (the port's
+    default; the reference function's is "pixel") or "pixel". leaf (matrix
+    agg only) selects how levels 0-1 run: "auto" uses the multicut leaf
+    (ops/multicut_leaf.py) whenever it applies (chain mode, base 8,
+    caps[0] = 64, caps[1] <= 128), "fused" requires it, "xla" or "unfused"
+    runs the level-by-level loop. The same merges every way (bit-identical
+    on integer-valued costs)."""
     height, width = costs_bhw2.shape[1:3]
     sides = plan_levels(height, width, base)
     if not sides:
         raise ValueError(f"image {height}x{width} not divisible by {base}")
-    if height * width >= 2 ** 24:
-        raise ValueError("min-pixel ids are f32: H*W must stay below 2^24")
-    if leaf not in ("auto", "fused", "unfused"):
+    if mode not in ("chain", "random_mate", "mutual"):
+        raise ValueError(f"unknown mode: {mode}")
+    if agg not in ("pixel", "matrix"):
+        raise ValueError(f"unknown agg: {agg}")
+    if leaf not in ("auto", "fused", "xla", "unfused"):
         raise ValueError(f"unknown leaf: {leaf}")
     if caps is None:
         caps = default_caps(sides)
@@ -386,13 +568,17 @@ def hier_gaec(costs_bhw2: torch.Tensor, base: int = 8,
         raise ValueError("caps[0] must cover the base tile "
                          f"({sides[0]}^2), got {caps[0]}")
     if rounds_per_level is None:
-        rounds_per_level = [3, 2] + [1] * (len(sides) - 2)
+        # random_mate's coin-gated merges convert fewer candidates per round
+        rounds_per_level = ([3, 2] + [1] * (len(sides) - 2) if mode == "chain"
+                            else [4, 3] + [2] * (len(sides) - 2))
     elif len(rounds_per_level) < len(sides):  # deeper levels repeat the last
         rounds_per_level = (list(rounds_per_level)
                             + [rounds_per_level[-1]]
                             * (len(sides) - len(rounds_per_level)))
-    return _hier_gaec_matrix(costs_bhw2.to(torch.float32), sides, caps,
-                             rounds_per_level, leaf)
+    costs = costs_bhw2.to(torch.float32)
+    if agg == "pixel":
+        return _hier_gaec_pixel(costs, sides, caps, rounds_per_level, mode)
+    return _hier_gaec_matrix(costs, sides, caps, rounds_per_level, mode, leaf)
 
 
 def globalize(res: HierResult, height: int, width: int) -> torch.Tensor:
@@ -409,12 +595,17 @@ def globalize(res: HierResult, height: int, width: int) -> torch.Tensor:
 
 def smallest_pixel_labels(res: HierResult) -> torch.Tensor:
     """Relabel top-tile ranks to each region's smallest pixel index (the
-    public label contract) by one slot lookup into minpix; frozen regions
-    carry theirs in final_gid. Returns [B, H, W] int32."""
+    public label contract): one slot lookup into minpix (matrix agg) or a
+    per-slot minimum over the pixels (pixel agg); frozen regions carry
+    theirs in final_gid. Returns [B, H, W] int32."""
     b, height, width = res.rank_img.shape
     s, slots = res.top_tile, res.top_slots
     ranks_t = _to_tiles(res.rank_img, s)
-    lab_t = _take(res.minpix.reshape(-1, slots),
-                  ranks_t.clamp(min=0)).to(torch.int32)
+    if res.minpix is not None:
+        mins = res.minpix.reshape(-1, slots)
+    else:
+        mins = _slot_min(ranks_t, _to_tiles(_pixel_ids(
+            b, height, width, ranks_t.device), s), slots, height * width)
+    lab_t = _take(mins, ranks_t.clamp(min=0)).to(torch.int32)
     labels = _from_tiles(lab_t, b, height, width, s)
     return torch.where(res.frozen, res.final_gid, labels)

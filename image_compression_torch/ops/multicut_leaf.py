@@ -64,13 +64,14 @@ def leaf_plain(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
                pix: torch.Tensor, s1: int, r0: int, r1: int, n_pix: int):
     """Plain PyTorch version of the leaf kernel, batched over supertiles.
 
-    w0h, w0v, pix [T1, 4, 64] f32 (child-major; weights already zeroed at
-    tile-crossing positions), wmid [T1, 32] f32, n_pix = H*W (the min-pixel
-    sentinel). Returns rank, gid [T1, 4, 64] int32, sym [T1, s1, s1] f32,
-    m [T1, s1] f32, ncand [T1] int32, over [T1] int32."""
+    w0h, w0v [T1, 4, 64] f32 (child-major; weights already zeroed at
+    tile-crossing positions), wmid [T1, 32] f32, pix [T1, 4, 64] int32 pixel
+    ids, n_pix = H*W (the min-pixel sentinel). Returns rank, gid [T1, 4, 64]
+    int32, sym [T1, s1, s1] f32, m [T1, s1] int32, ncand [T1] int32,
+    over [T1] int32."""
     t1 = w0h.shape[0]
     dev = w0h.device
-    sentinel = float(n_pix)
+    sentinel = n_pix
 
     # level 0: band-structured pair init, then the rounds, per child
     rows = torch.arange(S0, device=dev)[:, None]
@@ -92,7 +93,7 @@ def leaf_plain(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
     cand = r4 + offs.unsqueeze(-1)
     newly = cand >= s1
     minpix = _take(m0, cmap0).reshape(t1, 4, S0)  # each region's min pixel
-    gid = torch.where(newly, minpix, 0.0).to(torch.int32)
+    gid = torch.where(newly, minpix, 0).to(torch.int32)
     rank1 = torch.where(newly, -1, cand).reshape(t1, 4 * S0)
     sym1, m1 = _embed_children(sym0.reshape(t1, 4, S0, S0),
                                m0.reshape(t1, 4, S0), offs, s1, sentinel)
@@ -133,13 +134,13 @@ def leaf_cuda(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
     global launches
     t1 = w0h.shape[0]
     dev = w0h.device
-    for name, t, shape in (("w0h", w0h, (t1, 4, S0)),
-                           ("w0v", w0v, (t1, 4, S0)),
-                           ("wmid", wmid, (t1, 32)),
-                           ("pix", pix, (t1, 4, S0))):
-        if (t.device != dev or t.dtype != torch.float32
+    for name, t, shape, dtype in (
+            ("w0h", w0h, (t1, 4, S0), "f32"), ("w0v", w0v, (t1, 4, S0), "f32"),
+            ("wmid", wmid, (t1, 32), "f32"), ("pix", pix, (t1, 4, S0), "i32")):
+        want = torch.float32 if dtype == "f32" else torch.int32
+        if (t.device != dev or t.dtype != want
                 or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(f"leaf_cuda: {name} must be a contiguous f32 "
+            raise ValueError(f"leaf_cuda: {name} must be a contiguous {dtype} "
                              f"{shape} tensor on {dev}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if dev.type != "cuda":
@@ -147,13 +148,11 @@ def leaf_cuda(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
     if not 1 <= s1 <= LEAF_MAX_S1:
         raise ValueError(f"leaf_cuda supports 1 <= s1 <= {LEAF_MAX_S1}, "
                          f"got {s1}")
-    if n_pix >= 2 ** 24:
-        raise ValueError("min-pixel ids are f32: H*W must stay below 2^24")
     i32 = dict(dtype=torch.int32, device=dev)
     rank = torch.empty((t1, 4, S0), **i32)
     gid = torch.empty((t1, 4, S0), **i32)
     sym = torch.empty((t1, s1, s1), dtype=torch.float32, device=dev)
-    m = torch.empty((t1, s1), dtype=torch.float32, device=dev)
+    m = torch.empty((t1, s1), **i32)
     ncand = torch.empty((t1,), **i32)
     over = torch.empty((t1,), **i32)
     lib = _lib()
@@ -181,8 +180,8 @@ def leaf_core(w0h, w0v, wmid, pix, s1: int, r0: int, r1: int, n_pix: int):
 
 def leaf_inputs(costs: torch.Tensor):
     """Kernel inputs from cost planes [B, H, W, 2] (H, W divisible by 16):
-    child-major level-0 weights and pixel ids [B*T1, 4, 64], mid-line
-    weights [B*T1, 32]."""
+    child-major level-0 weights [B*T1, 4, 64] f32, mid-line weights
+    [B*T1, 32] f32 and pixel ids [B*T1, 4, 64] int32."""
     b, height, width, _ = costs.shape
     if height % 16 or width % 16:
         raise ValueError(f"multicut leaf needs 16-divisible dims, "
@@ -199,7 +198,7 @@ def leaf_inputs(costs: torch.Tensor):
         return (img.reshape(-1, th, 2, 8, tw, 2, 8)
                 .permute(0, 1, 4, 2, 5, 3, 6).reshape(-1, 4, S0).contiguous())
 
-    pix = (ys[:, None] * width + xs[None, :]).to(torch.float32)
+    pix = (ys[:, None] * width + xs[None, :]).to(torch.int32)
     wmid_h = (costs[:, :, 7::16, 0].reshape(b, th, 16, tw)
               .permute(0, 1, 3, 2).reshape(-1, 16))
     wmid_v = costs[:, 7::16, :, 1].reshape(-1, 16)

@@ -48,20 +48,19 @@ def learned_costs(model: EdgeUNet, images: torch.Tensor,
 
 
 def segment_batch(costs_bhw2: torch.Tensor, mode: str = "chain",
-                  max_rounds: int = 3, icm_sweeps: int = 0, hier_rounds: tuple | None = None,
+                  max_rounds: int = 3, icm_sweeps: int = 0,
+                  hier_rounds: tuple | None = None,
                   hier_caps: str | None = None, hier_agg: str = "matrix",
-                  hier_leaf: str = "auto") -> torch.Tensor:
-    """Batched multicut over cost planes -> labels [B, H, W] int32. Only
-    the configuration this port implements is accepted: chain mode, no ICM
-    sweeps, matrix aggregation."""
-    if mode != "chain" or icm_sweeps != 0 or hier_agg != "matrix":
-        raise NotImplementedError(
-            f"ported solver configuration is mode='chain', icm_sweeps=0, "
-            f"hier_agg='matrix'; got mode={mode!r}, icm_sweeps={icm_sweeps}, "
-            f"hier_agg={hier_agg!r}")
-    return multicut_grid(costs_bhw2, max_rounds=max_rounds,
+                  hier_leaf: str = "auto",
+                  matchings_per_round: int = 4) -> torch.Tensor:
+    """Batched multicut over cost planes -> labels [B, H, W] int32. Takes
+    every solver setting the reference's segment_batch takes; unknown values
+    raise ValueError (ops/multicut.multicut_grid)."""
+    return multicut_grid(costs_bhw2, max_rounds=max_rounds, mode=mode,
+                         icm_sweeps=icm_sweeps,
+                         matchings_per_round=matchings_per_round,
                          hier_rounds=hier_rounds, hier_caps=hier_caps,
-                         hier_leaf=hier_leaf)
+                         hier_agg=hier_agg, hier_leaf=hier_leaf)
 
 
 def fallback_single_slice(images_f01: torch.Tensor, labels: torch.Tensor,
@@ -123,7 +122,8 @@ def _device_labels(images_u8: list[np.ndarray], cost_fn: Callable,
         costs, mode=mc.mode, max_rounds=mc.max_rounds,
         icm_sweeps=mc.icm_sweeps,
         hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
-        hier_caps=mc.hier_caps, hier_agg=mc.hier_agg, hier_leaf=mc.hier_leaf)
+        hier_caps=mc.hier_caps, hier_agg=mc.hier_agg, hier_leaf=mc.hier_leaf,
+        matchings_per_round=mc.matchings_per_round)
     clock.mark("solver")
     rw = cfg.reward
     if cfg.compress_fallback:

@@ -33,11 +33,30 @@ def test_cuda_is_the_default_and_never_falls_back(tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(mode="random_mate"),
-                                dict(icm_sweeps=8), dict(hier_agg="pixel")])
+@pytest.mark.parametrize("kw", [dict(mode="random"),
+                                dict(hier_leaf="pallas"), dict(hier_agg="dense")])
 def test_unported_solver_settings_raise(kw):
-    with pytest.raises(NotImplementedError):
+    """Every solver setting of the reference is ported; values it rejects
+    raise ValueError here too, nothing falls back quietly."""
+    with pytest.raises(ValueError):
         segment_batch(torch.zeros((1, 32, 32, 2)), **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(mode="random_mate"), dict(icm_sweeps=8),
+                                dict(hier_agg="pixel"), dict(mode="mutual"),
+                                dict(mode="hybrid", matchings_per_round=2),
+                                dict(hier_leaf="xla")])
+def test_reference_solver_settings_accepted(kw):
+    """The settings a compress config may name run and give minlabel-shaped
+    labels of the input's shape."""
+    costs = torch.as_tensor(np.random.default_rng(0).integers(
+        -4, 5, (1, 32, 32, 2)).astype(np.float32))
+    labels = segment_batch(costs, **kw)
+    assert labels.shape == (1, 32, 32) and labels.dtype == torch.int32
+    flat = torch.arange(32 * 32, dtype=torch.int32).reshape(1, 32, 32)
+    assert bool((labels >= 0).all()) and bool((labels < 32 * 32).all())
+    if kw.get("mode") not in ("mutual", "hybrid"):  # the hierarchy: minlabel
+        assert bool((labels <= flat).all())
 
 
 def test_compress_directory_passthrough(tmp_path):

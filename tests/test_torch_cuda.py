@@ -88,3 +88,25 @@ def test_solver_repeats_on_real_costs(cuda):
         size=(2, 96, 160, 2)).astype(np.float32), device=cuda)
     kw = dict(hier_rounds=(2, 1), hier_caps="flat64")
     assert torch.equal(multicut_grid(costs, **kw), multicut_grid(costs, **kw))
+
+
+@pytest.mark.parametrize("shape,kw", [
+    ((4, 12, 12), {}), ((2, 8, 40), {}),
+    ((2, 64, 64), dict(mode="random_mate", icm_sweeps=8, hier_agg="pixel")),
+    ((2, 64, 64), dict(mode="mutual")), ((2, 64, 64), dict(mode="hybrid")),
+    ((2, 48, 80), dict(mode="random_mate", hier_agg="matrix"))])
+def test_solver_configurations_on_card_equal_cpu(cuda, shape, kw):
+    """The tiny-grid ensemble, ICM, pixel aggregation, the sorted path's
+    modes with the tile presolve and the random-mate hierarchy give the
+    CPU's labels on integer costs."""
+    costs = torch.as_tensor(_costs("int", shape))
+    assert torch.equal(multicut_grid(costs.to(cuda), **kw).cpu(),
+                       multicut_grid(costs, **kw))
+
+
+def test_coin_bits_on_card_equal_cpu(cuda):
+    from image_compression_torch.ops import prng
+    for salt in (0, 50_003, 2 ** 31 - 1):
+        key = prng.fold_in(prng.prng_key(2), salt)
+        assert torch.equal(prng.random_bits(key, (77, 256), cuda).cpu(),
+                           prng.random_bits(key, (77, 256)))

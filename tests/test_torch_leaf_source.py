@@ -38,11 +38,12 @@ fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 data = np.load(sys.argv[2])
 s1, r0, r1, n_pix = (int(v) for v in data["params"])
 ins = [np.ascontiguousarray(data[k], np.float32)
-       for k in ("w0h", "w0v", "wmid", "pix")]
+       for k in ("w0h", "w0v", "wmid")]
+ins.append(np.ascontiguousarray(data["pix"], np.int32))
 t1 = ins[0].shape[0]
 outs = [np.full((t1, 4, 64), -7, np.int32), np.full((t1, 4, 64), -7, np.int32),
         np.full((t1, s1, s1), 99.0, np.float32),
-        np.full((t1, s1), 99.0, np.float32),
+        np.full((t1, s1), -7, np.int32),
         np.full(t1, -7, np.int32), np.full(t1, -7, np.int32)]
 for _ in range(int(sys.argv[4])):
     err = fn(*(a.ctypes.data for a in ins + outs), t1, s1, r0, r1, n_pix,
@@ -143,3 +144,19 @@ def test_source_repeats_on_real_costs(library):
                                    32 * 32), repeats=2)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_source_exact_ids_past_2_24(library):
+    """Odd pixel ids past 2^24 (not representable in f32) and their
+    sentinel pass through the compiled source exactly, bitwise to
+    leaf_plain, frozen regions included."""
+    costs = torch.as_tensor(_costs("heavy_int", (2, 32, 32)).astype(
+        np.float32))
+    w0h, w0v, wmid, pix = leaf.leaf_inputs(costs)
+    args = (w0h, w0v, wmid, (pix * 2 + 2 ** 24 + 1).to(torch.int32), 64, 2,
+            1, 2 ** 26 + 1)
+    (got,) = _run(library, args)
+    want = leaf.leaf_plain(*args)
+    for name, g, w in zip(FIELDS, got, want):
+        assert torch.equal(g, w), name
+    assert bool((want[1] > 2 ** 24).any()) and bool((want[3] > 2 ** 24).any())

@@ -101,11 +101,6 @@ def test_photo_shape_solves():
                        torch.unique(labels))
 
 
-def test_unported_shapes_raise():
-    with pytest.raises(NotImplementedError):
-        multicut_grid(torch.ones((1, 8, 8, 2)), **KW)  # sorted ensemble
-
-
 @pytest.mark.parametrize("n_labels", [2, 5])
 def test_relabel_connected_bitwise(n_labels):
     rng = np.random.default_rng(n_labels)
