@@ -5,8 +5,13 @@
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
 
 Phases, each printing one line with its own seconds:
-  0. environment: Python, torch, CUDA, nvcc, the card's name and power limit;
-  1. build: nvcc compiles every kernel source of the port (in parallel);
+  0. environment: Python, torch, CUDA, nvcc, the card's name and power
+     limit, and the host compiler g++ and zlib.h (the native PNG writer's
+     toolchain);
+  1. build: nvcc compiles every kernel source of the port and g++ the
+     native PNG writer csrc/pngio.cpp, all at once; where g++ and zlib.h
+     exist a failed writer build fails the run (without them the port
+     writes through its Python encoder, which gives the same bytes);
   2. kernel vs plain: each kernel's wrapper against its plain PyTorch
      version on the card, at the main path's shapes (8 images of 256x256)
      and on a ragged batch (3 images of 48x48, 27 supertiles); bitwise on
@@ -33,15 +38,34 @@ Phases, each printing one line with its own seconds:
   5. a 3648x5472 cost field (19.96 Mpx, past 2^24 pixels) through
      multicut_grid at the shipped settings: every label is the smallest
      flat index of its region and the leaf kernel launched; its seconds
-     and peak memory are printed.
+     and peak memory are printed;
+  6. classical extractors on the card against the CPU (2 x 64x64): canny
+     and watershed costs equal, graph and SLIC costs agreeing on >= 99% of
+     entries (the share is printed); each image alone gives the costs it
+     gets in the batch;
+  7. classical compress: 16 seeded 256x256 and 4 seeded 256x384 images are
+     written as PNG files and compressed by compress_directory on the card
+     with canny (the default without a model) and graph costs, 3 batches,
+     so that the host writes one batch while the device runs the next:
+     every output reassembles losslessly and is byte-equal to a serial run
+     (no overlap); each image's costs alone equal its costs in the first
+     batch, and on that batch's costs the solver repeats and gives the
+     CPU's labels. Printed: regions per image before the fallback,
+     images/s, stage seconds, slices per image, out/orig bytes, the PNG
+     writer that ran and the leaf launches (which must be >= 1). Then SLIC
+     and watershed compress the first 8 square images once, losslessly;
+  8. photo scale: graph costs and the solve of one 1536x2048 image, with
+     seconds and peak memory.
 Then one JSON line describing each kernel, the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line. Without a GPU (and without --device cpu) the
 script exits non-zero at once.
 
---device cpu --small runs phases 0, 3 and 4 on the CPU at 64x64 (and one
-48x80 image; the tiny cases as they are) with a base-8 U-Net, through the
-plain versions of the kernels, and no 3648x5472 field.
+--device cpu --small runs phases 0, 3, 4, 6 and 7 on the CPU at 64x64 (and
+one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in batches of
+4; the tiny cases as they are) with a base-8 U-Net, through the plain
+versions of the kernels; phase 6 then compares the CPU with itself, and
+there is no 3648x5472 field and no photo.
 """
 
 from __future__ import annotations
@@ -101,10 +125,24 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_toolchain() -> tuple[str | None, str | None]:
+    """(g++ path, zlib.h path), None for what is missing."""
+    from image_compression_torch import kernels
+    gxx = kernels.gxx_path()
+    return gxx, kernels.zlib_header(gxx) if gxx else None
+
+
 def phase_env(torch, device: str) -> None:
     with phase("env"):
         log(f"python {platform.python_version()} torch {torch.__version__} "
             f"cuda {torch.version.cuda} device {device}")
+        gxx, zlib_h = host_toolchain()
+        version = ""
+        if gxx:
+            version = subprocess.run([gxx, "--version"], capture_output=True,
+                                     text=True).stdout.splitlines()[0]
+        log(f"g++: {gxx or 'not found'} {version}; zlib.h: "
+            f"{zlib_h or 'not found'}")
         if device == "cuda":
             from image_compression_torch import kernels
             try:
@@ -120,11 +158,19 @@ def phase_env(torch, device: str) -> None:
 
 
 def phase_build() -> None:
-    """nvcc every kernel source at once; print ptxas' resource lines."""
+    """nvcc every kernel source and g++ the PNG writer, all at once; print
+    ptxas' resource lines. A failed build fails the run (the writer's only
+    where g++ and zlib.h exist)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from image_compression_torch import kernels
     names = sorted(p.stem for p in kernels.CSRC.glob("*.cu"))
+    gxx, zlib_h = host_toolchain()
+    if gxx and zlib_h:
+        names.append("pngio")
+    else:
+        log("pngio: not built (no g++ or no zlib.h): the Python encoder "
+            "writes the slices")
     with phase("build"):
         with ThreadPoolExecutor(len(names)) as pool:
             futures = {n: pool.submit(kernels.build, n) for n in names}
@@ -132,7 +178,7 @@ def phase_build() -> None:
             try:
                 path, stderr = fut.result()
             except kernels.BuildError as e:
-                log(f"nvcc failed for {name}:\n{e.stderr}")
+                log(f"build failed for {name}:\n{e.stderr}")
                 raise
             log(f"built {name} -> {path.relative_to(REPO)}")
             for line in stderr.splitlines():
@@ -291,12 +337,25 @@ def make_images(n: int, height: int, width: int,
     return images
 
 
+def make_solve(pipeline, mc):
+    """The solver at the settings of MulticutConfig `mc`."""
+    def solve(costs):
+        return pipeline.segment_batch(
+            costs, mode=mc.mode, max_rounds=mc.max_rounds,
+            icm_sweeps=mc.icm_sweeps,
+            hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
+            hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
+            hier_leaf=mc.hier_leaf,
+            matchings_per_round=mc.matchings_per_round)
+    return solve
+
+
 def check_solver_on_batch(torch, solve, costs, device: str) -> None:
-    """The solver on a batch's own learned costs: two solves of the
-    real-valued costs give the same labels (fixed-order sums), and on the
-    card the labels equal the CPU's on the costs rounded to multiples of
-    1/16 (exact in bf16 and in every f32 sum, so the order of the sums
-    cannot matter). Prints the regions per image before the fallback."""
+    """The solver on a batch's own costs (learned or classical): two solves
+    give the same labels (fixed-order sums), and on the card the labels
+    equal the CPU's on the costs rounded to multiples of 1/16 (exact in
+    bf16 and in every f32 sum, so the order of the sums cannot matter).
+    Prints the regions per image before the fallback."""
     labels = solve(costs)
     if not torch.equal(solve(costs), labels):
         raise AssertionError("two solves of the same costs differ")
@@ -353,17 +412,7 @@ def phase_main(torch, device: str, runs: list[dict], base: int) -> list[int]:
             batch, height, width = run["batch"], run["height"], run["width"]
             cfg = Config()  # shipped settings, with the run's aggregation
             cfg.multicut.hier_agg = run["agg"]
-            mc = cfg.multicut
-
-            def solve(costs):
-                return pipeline.segment_batch(
-                    costs, mode=mc.mode, max_rounds=mc.max_rounds,
-                    icm_sweeps=mc.icm_sweeps,
-                    hier_rounds=(tuple(mc.hier_rounds) if mc.hier_rounds
-                                 else None),
-                    hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
-                    hier_leaf=mc.hier_leaf,
-                    matchings_per_round=mc.matchings_per_round)
+            solve = make_solve(pipeline, cfg.multicut)
 
             with torch.no_grad():
                 model.outc.bias[0::2] = run["bias"]
@@ -516,6 +565,230 @@ def phase_big_field(torch) -> None:
             "label is its region's smallest flat index")
 
 
+def phase_extractors(torch, device: str, side: int) -> None:
+    """Each classical extractor on 2 seeded images on the device against
+    the CPU: canny and watershed cost planes equal, graph and SLIC costs
+    agreeing on >= 99% of entries (their float sums may round apart where
+    a decision has no margin)."""
+    from image_compression_torch.config import EdgeTarget
+    from image_compression_torch.ops.targets import compute_edge_costs
+
+    images = np.stack(make_images(2, side, side, seed=11)) / 255.0
+    x = torch.as_tensor(images, dtype=torch.float32)
+    with phase("classical extractors"):
+        for target in EdgeTarget:
+            t0 = time.perf_counter()
+            got = compute_edge_costs(x.to(device), target)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            want = compute_edge_costs(x, target)
+            if got.shape != want.shape:
+                raise AssertionError(f"{target.value}: shape "
+                                     f"{tuple(got.shape)}")
+            agree = float((got.cpu() == want).float().mean())
+            for i in range(len(x)):
+                if not torch.equal(compute_edge_costs(x[i:i + 1].to(device),
+                                                      target), got[i:i + 1]):
+                    raise AssertionError(f"{target.value}: image {i} alone "
+                                         "differs from the batch")
+            exact = target in (EdgeTarget.CANNY, EdgeTarget.WATERSHED)
+            if (exact and agree != 1.0) or agree < 0.99:
+                raise AssertionError(f"{target.value} on {device}: "
+                                     f"{agree:.6f} of entries equal the "
+                                     f"CPU's")
+            log(f"  {target.value} 2 x {side}x{side}: {dt:.4f} s on "
+                f"{device}; {agree:.6f} of cost entries equal the CPU's"
+                + (" (bitwise)" if exact else "")
+                + "; each image alone equals the batch")
+
+
+def serial_compress(torch, cfg, paths, cost_fn, device, batch_size: int):
+    """compress_directory's steps without the device/host overlap: each
+    batch's device half, then its write, in turn."""
+    from image_compression_torch import pipeline
+    from image_compression_torch.io.image_io import load_image
+
+    by_shape: dict = {}
+    for path in paths:
+        by_shape.setdefault(pipeline.image_dims(path), []).append(path)
+    for _shape, group in sorted(by_shape.items()):
+        for i in range(0, len(group), batch_size):
+            chunk = group[i:i + batch_size]
+            imgs = [load_image(p) for p in chunk]
+            pad = batch_size - len(chunk) if len(group) > batch_size else 0
+            sizes = [p.stat().st_size for p in chunk]
+            with torch.inference_mode():
+                labels = pipeline._device_labels(
+                    imgs + imgs[-1:] * pad, cost_fn, cfg,
+                    torch.device(device), orig_sizes=sizes + sizes[-1:] * pad)
+                wire = pipeline._pack_wire(labels)
+            pipeline._write_batch(imgs + imgs[-1:] * pad, wire, cfg,
+                                  cfg.results_dir,
+                                  [p.stem for p in chunk] + [None] * pad,
+                                  src_paths=list(chunk) + [None] * pad)
+
+
+def _tree_bytes(path: pathlib.Path) -> dict:
+    if path.is_file():
+        return {path.name: path.read_bytes()}
+    return {p.name: p.read_bytes() for p in sorted(path.iterdir())}
+
+
+def phase_classical(torch, device: str, side: int, batch: int) -> None:
+    """Checkpoint-free compress on the device with classical costs: canny
+    (the default) and graph over 3 batches (2 * batch square images and 4
+    wide ones) with the host/device overlap, byte-equal to a serial run and
+    lossless; then SLIC and watershed once on the first batch."""
+    from image_compression_torch import pipeline
+    from image_compression_torch.config import Config, EdgeTarget
+    from image_compression_torch.io import native, pypng
+    from image_compression_torch.io.image_io import ensure_rgba, load_image
+    from image_compression_torch.io.reassemble import reassemble_array
+    from image_compression_torch.ops import multicut_leaf
+
+    wide = side * 3 // 2
+    with phase("classical compress"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        data = tmp / "data"
+        data.mkdir()
+        square = make_images(2 * batch, side, side, seed=21)
+        for i, img in enumerate(square):
+            (data / f"sq{i:02d}.png").write_bytes(pypng.encode(img))
+        for i, img in enumerate(make_images(4, side, wide, seed=22)):
+            (data / f"wide{i}.png").write_bytes(pypng.encode(img))
+        paths = sorted(data.glob("*.png"))
+        orig_bytes = sum(p.stat().st_size for p in paths)
+        log(f"  png writer: {native.writer()}")
+        for target in (None, EdgeTarget.GRAPH):
+            name = target.value if target else "canny (default)"
+            cost_target = target or EdgeTarget.CANNY
+
+            def cost_fn(b, t=cost_target):
+                return pipeline.classical_costs_signed(b, t)
+
+            # the solver on this extractor's costs of the first batch
+            with torch.inference_mode():
+                costs = cost_fn(torch.as_tensor(
+                    np.stack(square[:batch]) / 255.0, dtype=torch.float32,
+                    device=device))
+            check_solver_on_batch(torch, make_solve(pipeline,
+                                                    Config().multicut),
+                                  costs, device)
+            with torch.inference_mode():
+                for i in range(batch):
+                    if not torch.equal(cost_fn(torch.as_tensor(
+                            square[i][None] / 255.0, dtype=torch.float32,
+                            device=device)), costs[i:i + 1]):
+                        raise AssertionError(f"{name}: image {i}'s costs "
+                                             "alone differ from its costs "
+                                             "in the batch")
+            log(f"  {name}: each image's costs alone equal its costs in the "
+                f"batch of {batch}")
+            serial = Config(dataset_dir=str(data),
+                            results_dir=str(tmp / f"serial_{name[:5]}"))
+            serial_compress(torch, serial, paths, cost_fn, device, batch)
+            cfg = Config(dataset_dir=str(data),
+                         results_dir=str(tmp / f"out_{name[:5]}"))
+            timings: dict = {}
+            multicut_leaf.launches = 0
+            t0 = time.perf_counter()
+            outs = pipeline.compress_directory(cfg, classical=target,
+                                               batch_size=batch,
+                                               device=device,
+                                               timings=timings)
+            elapsed = time.perf_counter() - t0
+            launches = multicut_leaf.launches
+            out_bytes, n_slices = 0, []
+            for out, src in zip(outs, paths):
+                files = _tree_bytes(out)
+                if files != _tree_bytes(pathlib.Path(serial.results_dir)
+                                        / out.name):
+                    raise AssertionError(f"{name} {out.name}: bytes differ "
+                                         "from the serial run")
+                out_bytes += sum(len(v) for v in files.values())
+                n_slices.append(len(files) - 1)
+                if not np.array_equal(reassemble_array(out),
+                                      ensure_rgba(load_image(src))):
+                    raise AssertionError(f"{name} {out.name}: reassembly "
+                                         "not lossless")
+            if len(outs) != len(paths):
+                raise AssertionError(f"{name}: {len(outs)} outputs")
+            if device == "cuda" and launches < 1:
+                raise AssertionError(f"{name}: the leaf kernel did not "
+                                     "launch")
+            log(f"  {name}: {len(paths)} images ({len(square)} x "
+                f"{side}x{side}, 4 x {side}x{wide}) in 3 batches, "
+                f"{len(paths) / elapsed:.3f} images/s ({elapsed:.3f} s); "
+                f"lossless; bytes equal the serial run")
+            log(f"  {name}: stage seconds " + ", ".join(
+                f"{k} {v:.4f}" for k, v in timings.items())
+                + " (write runs in a worker thread, overlapping the rest)")
+            log(f"  {name}: slices per image {n_slices}; out/orig bytes "
+                f"{out_bytes / orig_bytes:.4f} ({out_bytes} / "
+                f"{orig_bytes}); multicut_leaf launches {launches}")
+
+        first = tmp / "first"
+        first.mkdir()
+        for p in paths[:batch]:
+            (first / p.name).write_bytes(p.read_bytes())
+        for target in (EdgeTarget.SLIC, EdgeTarget.WATERSHED):
+            cfg = Config(dataset_dir=str(first),
+                         results_dir=str(tmp / target.value))
+            t0 = time.perf_counter()
+            outs = pipeline.compress_directory(cfg, classical=target,
+                                               device=device)
+            elapsed = time.perf_counter() - t0
+            for out, src in zip(outs, sorted(first.glob("*.png"))):
+                if not np.array_equal(reassemble_array(out),
+                                      ensure_rgba(load_image(src))):
+                    raise AssertionError(f"{target.value} {out.name}: "
+                                         "reassembly not lossless")
+            log(f"  {target.value}: {batch} x {side}x{side} in "
+                f"{elapsed:.3f} s "
+                f"(first call, one batch); slices per image "
+                f"{[len(_tree_bytes(o)) - 1 for o in outs]}; lossless")
+
+
+def phase_photo(torch) -> None:
+    """Graph costs and the solve of one 1536x2048 image on the card."""
+    from image_compression_torch.config import Config, EdgeTarget
+    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.ops.multicut import multicut_grid
+    from image_compression_torch.pipeline import classical_costs_signed
+
+    height, width = 1536, 2048
+    mc = Config().multicut
+    with phase("photo scale"):
+        x = torch.as_tensor(np.stack(make_images(1, height, width, seed=31))
+                            / 255.0, dtype=torch.float32, device="cuda")
+        classical_costs_signed(x[:, :256, :256], EdgeTarget.GRAPH)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        multicut_leaf.launches = 0
+        t0 = time.perf_counter()
+        costs = classical_costs_signed(x, EdgeTarget.GRAPH)
+        torch.cuda.synchronize()
+        t_costs = time.perf_counter() - t0
+        labels = multicut_grid(
+            costs, mode=mc.mode, max_rounds=mc.max_rounds,
+            icm_sweeps=mc.icm_sweeps, hier_rounds=tuple(mc.hier_rounds),
+            hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
+            hier_leaf=mc.hier_leaf)
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        if labels.shape != (1, height, width) or not bool(
+                torch.isin(costs, torch.tensor([-1.0, 0.0, 1.0],
+                                               device="cuda")).all()):
+            raise AssertionError("photo: bad costs or labels")
+        log(f"  {height}x{width}: graph costs {t_costs:.3f} s, costs + "
+            f"solve {t_all:.3f} s, peak {peak / 2 ** 30:.2f} GiB allocated, "
+            f"{int((costs > 0).float().mean() * 1e4) / 1e4} of edges "
+            f"connect, {int(torch.unique(labels).numel())} regions, leaf "
+            f"launches {multicut_leaf.launches}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -564,6 +837,10 @@ def main(argv=None) -> int:
     phase_solver_configs(torch, args.device)
     if args.device == "cuda":
         phase_big_field(torch)
+    phase_extractors(torch, args.device, 64)
+    phase_classical(torch, args.device, side, 4 if args.small else batch)
+    if args.device == "cuda":
+        phase_photo(torch)
 
     if args.device == "cuda":
         kernels[0]["launches"] = launches[0]

@@ -1,9 +1,10 @@
-"""Image load/save and recursive dataset scanning, without a native library.
+"""Image load/save and recursive dataset scanning.
 
-PNGs decode and encode through io/pypng.py (zlib + numpy). PIL is imported
-only to decode inputs pypng cannot (palette, interlaced, non-PNG formats);
-where PIL is missing that raises a clear error. Arrays are RGB(A) uint8 or
-uint16 HWC.
+PNGs decode and encode through the native codec (csrc/pngio.cpp via
+io/native.py) where it is built, else through io/pypng.py (zlib + numpy);
+the two encoders write the same bytes. PIL is imported only to decode
+inputs neither handles (palette, interlaced, non-PNG formats); where PIL is
+missing that raises a clear error. Arrays are RGB(A) uint8 or uint16 HWC.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import pathlib
 
 import numpy as np
 
-from image_compression_torch.io import pypng
+from image_compression_torch.io import native, pypng
 
 
 def find_image_files_recursively(root: str | pathlib.Path,
@@ -62,7 +63,8 @@ def _decode_with_pil(data: bytes) -> np.ndarray:
 def decode_image_bytes(data: bytes) -> np.ndarray:
     """Image bytes -> uint8/uint16 HWC, keeping channel count and depth
     (gray+alpha becomes RGBA; grayscale stays one channel)."""
-    arr = pypng.try_decode(data)
+    arr = (native.decode_png(data) if native.available()
+           else pypng.try_decode(data))
     if arr is None:
         arr = _decode_with_pil(data)
     if arr.ndim == 2:
@@ -76,6 +78,14 @@ def load_image(path: str | pathlib.Path) -> np.ndarray:
     return decode_image_bytes(pathlib.Path(path).read_bytes())
 
 
+def encode_png(image_hwc: np.ndarray, compression_level: int = 4) -> bytes:
+    """PNG bytes of a uint8/uint16 image: the native encoder where it is
+    built, else io/pypng.py (the same bytes)."""
+    if native.available():
+        return native.encode_png(image_hwc, compression_level)
+    return pypng.encode(image_hwc, compression_level)
+
+
 def write_image(path: str | pathlib.Path, image_hwc: np.ndarray,
                 compression_level: int = 4) -> bool:
     """Encode a PNG at the given zlib level (forces a .png suffix)."""
@@ -84,7 +94,7 @@ def write_image(path: str | pathlib.Path, image_hwc: np.ndarray,
         arr = arr[:, :, 0]
     try:
         pathlib.Path(path).with_suffix(".png").write_bytes(
-            pypng.encode(arr, compression_level))
+            encode_png(arr, compression_level))
         return True
     except OSError:
         return False

@@ -1,9 +1,9 @@
 """Lossless reassembly of sliced images.
 
-Reads metadata.bin and the slice PNGs of a directory and composites them
-onto a transparent canvas at their recorded positions; alpha > 0 selects
-segment pixels. The inverse of io/slicer.py; port of the reference's
-io/reassemble.py for its file layout.
+Reads metadata.bin and the slice PNGs of a directory, or a single-file
+pack (io/pack.py), and composites them onto a transparent canvas at their
+recorded positions; alpha > 0 selects segment pixels. The inverse of
+io/slicer.py; port of the reference's io/reassemble.py.
 """
 
 from __future__ import annotations
@@ -13,15 +13,24 @@ import sys
 
 import numpy as np
 
-from image_compression_torch.io.image_io import (ensure_rgba, load_image,
+from image_compression_torch.io.image_io import (decode_image_bytes,
+                                                 ensure_rgba, load_image,
                                                  write_image)
 from image_compression_torch.io.metadata import read_metadata_binary
+from image_compression_torch.io.pack import is_pack, read_pack
 
 
 def reassemble_array(slice_dir: str | pathlib.Path) -> np.ndarray:
-    """Composite all slices of a directory onto a canvas [H, W, 4]."""
+    """Composite all slices of a directory or pack file onto a canvas
+    [H, W, 4]."""
     slice_dir = pathlib.Path(slice_dir)
-    records, width, height = read_metadata_binary(slice_dir / "metadata.bin")
+    blob_by_name: dict[str, bytes] | None = None
+    if is_pack(slice_dir):
+        records, blobs, width, height = read_pack(slice_dir)
+        blob_by_name = {m.filename: b for m, b in zip(records, blobs)}
+    else:
+        records, width, height = read_metadata_binary(
+            slice_dir / "metadata.bin")
     if not records:
         raise ValueError("No slices in metadata")
 
@@ -31,13 +40,17 @@ def reassemble_array(slice_dir: str | pathlib.Path) -> np.ndarray:
             print(f"Warning: empty filename for label {m.label}, skipping",
                   file=sys.stderr)
             continue
-        path = slice_dir / m.filename
-        if not path.exists():
-            # the reference resolves filenames relative to the cwd
-            path = pathlib.Path(m.filename)
         try:
-            piece = ensure_rgba(load_image(path))
-        except (OSError, ValueError):
+            if blob_by_name is not None:
+                piece = ensure_rgba(decode_image_bytes(
+                    blob_by_name[m.filename]))
+            else:
+                path = slice_dir / m.filename
+                if not path.exists():
+                    # the reference resolves filenames relative to the cwd
+                    path = pathlib.Path(m.filename)
+                piece = ensure_rgba(load_image(path))
+        except (OSError, ValueError, KeyError):
             print(f"Warning: failed to load slice '{m.filename}', skipping",
                   file=sys.stderr)
             continue

@@ -44,6 +44,19 @@ def edges_from_labels(labels: torch.Tensor) -> torch.Tensor:
                        dim=-1)
 
 
+def shift_plane(arr: torch.Tensor, dy: int, dx: int, fill=0) -> torch.Tensor:
+    """The plane moved by (dy, dx): out[..., y, x] = arr[..., y - dy,
+    x - dx], `fill` where that lies outside. shift_plane(a, -dy, -dx) reads
+    each pixel's (y + dy, x + dx) neighbour."""
+    height, width = arr.shape[-2:]
+    out = torch.full_like(arr, fill)
+    out[..., max(0, dy):height - max(0, -dy),
+        max(0, dx):width - max(0, -dx)] = arr[
+            ..., max(0, -dy):height - max(0, dy),
+            max(0, -dx):width - max(0, dx)]
+    return out
+
+
 def flatten_edge_planes(planes: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 2] -> [..., E] in the reference's edge-list order."""
     h = planes[..., :, : planes.shape[-2] - 1, 0]

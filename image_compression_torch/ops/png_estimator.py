@@ -27,18 +27,9 @@ from __future__ import annotations
 
 import torch
 
+from image_compression_torch.ops.edges import shift_plane
+
 MASK32 = 0xFFFFFFFF
-
-
-def _shifted(arr: torch.Tensor, dy: int, dcol: int, fill=0) -> torch.Tensor:
-    """out[..., y, c] = arr[..., y - dy, c - dcol], `fill` outside."""
-    height, ncols = arr.shape[-2:]
-    out = torch.full_like(arr, fill)
-    out[..., max(0, dy):height - max(0, -dy),
-        max(0, dcol):ncols - max(0, -dcol)] = arr[
-            ..., max(0, -dy):height - max(0, dy),
-            max(0, -dcol):ncols - max(0, dcol)]
-    return out
 
 
 def _as_int8_abs(r: torch.Tensor) -> torch.Tensor:
@@ -90,11 +81,12 @@ def segment_sizes(img: torch.Tensor, inverse: torch.Tensor, k: torch.Tensor,
     # column j is column j - C
     has_left = xs2 > x0
     has_up = ys > y0
-    left = torch.where(has_left & _shifted(in_seg2, 0, channels),
-                       _shifted(img2, 0, channels), 0)
-    up = torch.where(has_up & _shifted(in_seg2, 1, 0), _shifted(img2, 1, 0), 0)
-    upleft = torch.where(has_left & has_up & _shifted(in_seg2, 1, channels),
-                         _shifted(img2, 1, channels), 0)
+    left = torch.where(has_left & shift_plane(in_seg2, 0, channels),
+                       shift_plane(img2, 0, channels), 0)
+    up = torch.where(has_up & shift_plane(in_seg2, 1, 0),
+                     shift_plane(img2, 1, 0), 0)
+    upleft = torch.where(has_left & has_up & shift_plane(in_seg2, 1, channels),
+                         shift_plane(img2, 1, channels), 0)
 
     def residual(pred):
         return torch.remainder(cur - pred, 256)
@@ -121,7 +113,7 @@ def segment_sizes(img: torch.Tensor, inverse: torch.Tensor, k: torch.Tensor,
     prev_row_last = torch.cat(
         [torch.full((n, 1), -1, dtype=res.dtype, device=dev),
          row_last[:, :-1]], dim=1)
-    prev = torch.where(cs > col_start, _shifted(res, 0, 1, fill=-1),
+    prev = torch.where(cs > col_start, shift_plane(res, 0, 1, fill=-1),
                        torch.where(ys > y0, prev_row_last[:, :, None], -1))
     in_stream = in_bbox2
     same = in_stream & (res == prev) & (prev >= 0)
@@ -132,13 +124,13 @@ def segment_sizes(img: torch.Tensor, inverse: torch.Tensor, k: torch.Tensor,
     def stream_next(b):
         head = (b & (cs == col_start)).any(dim=2)
         next_head = torch.cat([head[:, 1:], torch.zeros_like(head[:, :1])], 1)
-        return torch.where(cs < col_end, _shifted(b, 0, -1, fill=False),
+        return torch.where(cs < col_end, shift_plane(b, 0, -1, fill=False),
                            (cs == col_end) & next_head[:, :, None])
 
     def stream_prev(b):
         tail = (b & (cs == col_end)).any(dim=2)
         prev_tail = torch.cat([torch.zeros_like(tail[:, :1]), tail[:, :-1]], 1)
-        return torch.where(cs > col_start, _shifted(b, 0, 1, fill=False),
+        return torch.where(cs > col_start, shift_plane(b, 0, 1, fill=False),
                            (cs == col_start) & prev_tail[:, :, None])
 
     s_t = stream_next(same)

@@ -1,13 +1,17 @@
 """Compress pipeline: images -> edge costs -> multicut -> fallback decision
--> merge refinement -> slice PNGs + metadata.bin.
+-> merge refinement -> slice PNGs + metadata.bin (or one pack per image).
 
-Port of the learned-cost compress path of the reference's pipeline.py. The
-device half (U-Net, solver, size model, connectivity wire) runs batched on
-`device`; slicing and PNG encoding run on the host. The order solver ->
-fallback -> merge is the reference's, and it is measured: merging before
-the keep decision flips borderline images across the original-size floor,
-so the decision runs on the un-merged partition and merge refinement only
-on the kept slicings (a declined image is all-zero labels, a no-op there).
+Port of the reference's pipeline.py. Edge costs come from the U-Net
+(learned) or from a classical extractor (CANNY, GRAPH, SLIC, WATERSHED:
+{0, 1} planes made signed). The device half (costs, solver, size model,
+connectivity wire) runs batched on `device`; slicing and PNG encoding run
+on the host. The order solver -> fallback -> merge is the reference's, and
+it is measured: merging before the keep decision flips borderline images
+across the original-size floor, so the decision runs on the un-merged
+partition and merge refinement only on the kept slicings (a declined image
+is all-zero labels, a no-op there). `compress_directory` overlaps the two
+halves as the reference does: batch i is sliced and written in a worker
+thread while batch i + 1's device half runs.
 """
 
 from __future__ import annotations
@@ -15,17 +19,19 @@ from __future__ import annotations
 import pathlib
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable
 
 import numpy as np
 import torch
 
-from image_compression_torch.config import Config
+from image_compression_torch.config import Config, EdgeTarget
 from image_compression_torch.device import resolve_device
 from image_compression_torch.io.image_io import (find_image_files_recursively,
                                                  load_image, to_float01_rgb)
 from image_compression_torch.io.metadata import (SliceMetadata,
                                                  write_metadata_binary)
+from image_compression_torch.io.pack import write_pack
 from image_compression_torch.io.slicer import write_slices_from_conn
 from image_compression_torch.models.unet import EdgeUNet
 from image_compression_torch.ops.edges import (edge_validity_masks,
@@ -34,6 +40,17 @@ from image_compression_torch.ops.labels_wire import pack_connectivity
 from image_compression_torch.ops.merge_refine import merge_refine_batch
 from image_compression_torch.ops.multicut import multicut_grid
 from image_compression_torch.ops.rewards import estimated_total_sizes_batched
+from image_compression_torch.ops.targets import compute_edge_costs
+
+
+def classical_costs_signed(images: torch.Tensor,
+                           target: EdgeTarget) -> torch.Tensor:
+    """Classical {0, 1} connect/cut planes -> signed multicut costs
+    {-1, +1} with padding masked to 0 (the checkpoint-free compress path)."""
+    costs01 = compute_edge_costs(images, target)
+    height, width = costs01.shape[-3], costs01.shape[-2]
+    return (2.0 * costs01 - 1.0) * edge_validity_masks(
+        height, width, device=costs01.device)
 
 
 def learned_costs(model: EdgeUNet, images: torch.Tensor,
@@ -116,7 +133,7 @@ def _device_labels(images_u8: list[np.ndarray], cost_fn: Callable,
     batch = torch.as_tensor(
         np.stack([to_float01_rgb(im) for im in images_u8])).to(device)
     costs = cost_fn(batch)
-    clock.mark("unet")
+    clock.mark("costs")
     mc = cfg.multicut
     labels = segment_batch(
         costs, mode=mc.mode, max_rounds=mc.max_rounds,
@@ -158,42 +175,52 @@ def _pack_wire(labels: torch.Tensor):
 
 def write_passthrough(src_path: str | pathlib.Path,
                       shape_hw: tuple[int, int],
-                      results_dir: str | pathlib.Path,
-                      name: str) -> pathlib.Path:
+                      results_dir: str | pathlib.Path, name: str,
+                      container: str = "files") -> pathlib.Path:
     """Emit the source PNG verbatim as the single full-canvas slice (a
-    fallen-back image whose source is a PNG of the same pixels)."""
+    fallen-back image whose source is a PNG of the same pixels), as a
+    slice directory or as a one-slice pack."""
     height, width = shape_hw
+    meta = [SliceMetadata(label=0, filename="slice_0.png", x=0, y=0,
+                          width=width, height=height)]
+    if container == "pack":
+        out = pathlib.Path(results_dir) / f"{name}.pack"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        write_pack(out, meta, [pathlib.Path(src_path).read_bytes()], width,
+                   height)
+        return out
     out = pathlib.Path(results_dir) / name
     out.mkdir(parents=True, exist_ok=True)
     shutil.copyfile(src_path, out / "slice_0.png")
-    write_metadata_binary([SliceMetadata(label=0, filename="slice_0.png",
-                                         x=0, y=0, width=width,
-                                         height=height)],
-                          out / "metadata.bin", width, height)
+    write_metadata_binary(meta, out / "metadata.bin", width, height)
     return out
 
 
 def _write_batch(images_u8: list[np.ndarray], wire, cfg: Config,
                  results_dir: str | pathlib.Path, names: list[str | None],
                  src_paths: list | None = None) -> list[pathlib.Path]:
-    """Host half of compress for one batch: slice + write from the wire.
-    With src_paths, a fallen-back image copies its source PNG instead of
-    re-encoding it."""
+    """Host half of compress for one batch: slice + write from the wire
+    into cfg.slice_container ("files" or "pack"). With src_paths, a
+    fallen-back image copies its source PNG instead of re-encoding it.
+    Returns each image's slice directory or pack file; a failed write
+    raises OSError."""
     hbits, vbits, single = wire
+    pack = cfg.slice_container == "pack"
     out_dirs = []
     for i, (img, name) in enumerate(zip(images_u8, names)):
         if name is None:  # batch padding entry
             continue
         src = src_paths[i] if src_paths else None
         if src is not None and cfg.compress_fallback and single[i]:
-            out_dirs.append(write_passthrough(src, img.shape[:2],
-                                              results_dir, name))
+            out_dirs.append(write_passthrough(
+                src, img.shape[:2], results_dir, name,
+                container=cfg.slice_container))
             continue
-        if not write_slices_from_conn(img, hbits[i], vbits[i], results_dir,
-                                      name, cfg.image_format,
-                                      cfg.compression_level):
-            raise OSError(f"failed to write the slices of {name}")
-        out_dirs.append(pathlib.Path(results_dir) / name)
+        write_slices_from_conn(img, hbits[i], vbits[i], results_dir, name,
+                               cfg.image_format, cfg.compression_level,
+                               container=cfg.slice_container)
+        out_dirs.append(pathlib.Path(results_dir)
+                        / (f"{name}.pack" if pack else name))
     return out_dirs
 
 
@@ -202,10 +229,11 @@ def compress_arrays(images_u8: list[np.ndarray], cost_fn: Callable,
                     names: list[str], device: str | torch.device = "cuda",
                     timings: dict | None = None) -> list[pathlib.Path]:
     """Compress a list of equally sized uint8 HWC images as one batch on
-    `device`; returns the per-image output directories. cost_fn maps the
-    float [B, H, W, 3] batch on the device to cost planes [B, H, W, 2].
-    With `timings`, per-stage seconds (unet, solver, fallback, merge, wire,
-    write) are added into it."""
+    `device`; returns the per-image output directories (or pack files).
+    cost_fn maps the float [B, H, W, 3] batch on the device to cost planes
+    [B, H, W, 2] (learned_costs, or classical_costs_signed for a classical
+    extractor). With `timings`, per-stage seconds (costs, solver, fallback,
+    merge, wire, write) are added into it."""
     dev = resolve_device(device)
     clock = _StageClock(timings, dev)
     with torch.inference_mode():
@@ -227,42 +255,80 @@ def image_dims(path: pathlib.Path) -> tuple[int, int]:
     return load_image(path).shape[:2]
 
 
-def compress_directory(cfg: Config, model: EdgeUNet,
-                       limit: int | None = None, batch_size: int = 8,
-                       device: str | torch.device = "cuda"
-                       ) -> list[pathlib.Path]:
+def _timed_write(*args, **kwargs) -> tuple[list[pathlib.Path], float]:
+    t0 = time.perf_counter()
+    out = _write_batch(*args, **kwargs)
+    return out, time.perf_counter() - t0
+
+
+def compress_directory(cfg: Config, model: EdgeUNet | None = None,
+                       limit: int | None = None,
+                       classical: EdgeTarget | None = None,
+                       batch_size: int = 8,
+                       device: str | torch.device = "cuda",
+                       timings: dict | None = None) -> list[pathlib.Path]:
     """The `compress` entry point: scan cfg.dataset_dir, segment every image
-    with the U-Net's learned costs, write slices + metadata into
-    cfg.results_dir/<stem>/. Images are bucketed by shape and batched
-    (trailing batches padded by repetition); a fallen-back image copies its
-    source PNG. The model is moved to `device`."""
+    and write slices + metadata into cfg.results_dir/<stem>/ (or
+    <stem>.pack). With `model`, the U-Net's learned costs (the model is
+    moved to `device`); otherwise the `classical` extractor's, CANNY when
+    none is named. Images are bucketed by shape and batched (trailing
+    batches padded by repetition); a fallen-back image copies its source
+    PNG. Batch i is sliced and written in a worker thread while batch
+    i + 1's device half runs; the outputs are those of a serial run, and a
+    write failure raises here. With `timings`, per-stage seconds are added
+    into it: the device stages as in compress_arrays, "write" summed over
+    the worker's batches (it overlaps the device stages)."""
     dev = resolve_device(device)
-    model = model.to(dev).eval()
     paths = find_image_files_recursively(cfg.dataset_dir, cfg.image_format)
     if limit:
         paths = paths[:limit]
     print(f"Found {len(paths)} images")
+    if model is not None:
+        model = model.to(dev).eval()
 
-    def cost_fn(b):
-        return learned_costs(model, b)
+        def cost_fn(b):
+            return learned_costs(model, b)
+    else:
+        target = classical or EdgeTarget.CANNY
+
+        def cost_fn(b):
+            return classical_costs_signed(b, target)
 
     by_shape: dict[tuple[int, int], list[pathlib.Path]] = {}
     for path in paths:
         by_shape.setdefault(image_dims(path), []).append(path)
-    out = []
-    for _shape, group in sorted(by_shape.items()):
-        for i in range(0, len(group), batch_size):
-            chunk = group[i:i + batch_size]
-            imgs = [load_image(p) for p in chunk]
-            pad = batch_size - len(chunk) if len(group) > batch_size else 0
-            sizes = [p.stat().st_size for p in chunk]
-            sizes += sizes[-1:] * pad
-            with torch.inference_mode():
-                labels = _device_labels(imgs + imgs[-1:] * pad, cost_fn, cfg,
-                                        dev, orig_sizes=sizes)
-                wire = _pack_wire(labels)
-            out += _write_batch(imgs + imgs[-1:] * pad, wire, cfg,
-                                cfg.results_dir,
-                                [p.stem for p in chunk] + [None] * pad,
-                                src_paths=list(chunk) + [None] * pad)
+    clock = _StageClock(timings, dev)
+    out: list[pathlib.Path] = []
+    pending = None  # the future of the previous batch's write
+
+    def collect(fut):
+        dirs, seconds = fut.result()  # re-raises the worker's failure
+        out.extend(dirs)
+        if timings is not None:
+            timings["write"] = timings.get("write", 0.0) + seconds
+
+    with ThreadPoolExecutor(1) as pool:
+        for _shape, group in sorted(by_shape.items()):
+            for i in range(0, len(group), batch_size):
+                chunk = group[i:i + batch_size]
+                imgs = [load_image(p) for p in chunk]
+                pad = batch_size - len(chunk) if len(group) > batch_size \
+                    else 0
+                sizes = [p.stat().st_size for p in chunk]
+                sizes += sizes[-1:] * pad
+                clock.t = time.perf_counter()
+                with torch.inference_mode():
+                    labels = _device_labels(imgs + imgs[-1:] * pad, cost_fn,
+                                            cfg, dev, orig_sizes=sizes,
+                                            clock=clock)
+                    wire = _pack_wire(labels)
+                clock.mark("wire")
+                if pending is not None:
+                    collect(pending)
+                pending = pool.submit(
+                    _timed_write, imgs + imgs[-1:] * pad, wire, cfg,
+                    cfg.results_dir, [p.stem for p in chunk] + [None] * pad,
+                    src_paths=list(chunk) + [None] * pad)
+        if pending is not None:
+            collect(pending)
     return out

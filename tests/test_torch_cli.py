@@ -1,14 +1,16 @@
 """Entry points of the PyTorch port: device resolution, the solver
-configuration check, compress_directory's passthrough, and the CLI."""
+configuration check, compress_directory's passthrough, and the CLI, with a
+checkpoint and without one (classical costs, canny by default)."""
 
 import json
+import pathlib
 
 import numpy as np
 import pytest
 import torch
 
 from image_compression_torch.cli.main import main as cli_main
-from image_compression_torch.config import Config
+from image_compression_torch.config import Config, EdgeTarget
 from image_compression_torch.device import resolve_device
 from image_compression_torch.io import pypng
 from image_compression_torch.io.image_io import ensure_rgba, load_image
@@ -91,3 +93,56 @@ def test_cli_compress_and_reassemble(tmp_path, capsys):
     cli_main(["reassemble", slice_dir, "-o", str(tmp_path / "rec.png")])
     np.testing.assert_array_equal(load_image(tmp_path / "rec.png"),
                                   ensure_rgba(img))
+
+
+def _dataset(tmp_path):
+    """Two 32x32 images with flat, textured and noisy parts."""
+    rng = np.random.default_rng(2)
+    data = tmp_path / "data"
+    data.mkdir()
+    images = []
+    for i in range(2):
+        img = np.full((32, 32, 3), 40 + 100 * i, np.uint8)
+        img[6:22, 8:26] = (220, 30 * i, 90)
+        img[22:, :12] = rng.integers(0, 256, (10, 12, 3))
+        (data / f"im{i}.png").write_bytes(pypng.encode(img))
+        images.append(img)
+    return data, images
+
+
+def test_cli_compress_without_checkpoint_is_canny(tmp_path, capsys):
+    """No --checkpoint and no --classical: canny costs, as the reference;
+    the outputs are those of compress_directory(classical=CANNY)."""
+    data, images = _dataset(tmp_path)
+    cli_main(["compress", "--dataset-dir", str(data), "--results-dir",
+              str(tmp_path / "cli"), "--device", "cpu", "--no-fallback"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    cfg = Config(dataset_dir=str(data), results_dir=str(tmp_path / "api"),
+                 compress_fallback=False)
+    want = compress_directory(cfg, classical=EdgeTarget.CANNY, device="cpu")
+    got = [pathlib.Path(d) for d in out["compressed"]]
+    assert [d.name for d in got] == [d.name for d in want]
+    for g, w, img in zip(got, want, images):
+        names = sorted(p.name for p in w.iterdir())
+        assert len(names) > 2  # sliced
+        assert names == sorted(p.name for p in g.iterdir())
+        for name in names:
+            assert (g / name).read_bytes() == (w / name).read_bytes()
+        np.testing.assert_array_equal(reassemble_array(g), ensure_rgba(img))
+
+
+@pytest.mark.parametrize("extractor", ["graph", "slic", "watershed"])
+@pytest.mark.parametrize("pack", [False, True])
+def test_cli_classical_compress_reassembles(tmp_path, capsys, extractor,
+                                            pack):
+    data, images = _dataset(tmp_path)
+    cli_main(["compress", "--dataset-dir", str(data), "--results-dir",
+              str(tmp_path / "out"), "--device", "cpu", "--classical",
+              extractor] + (["--pack"] if pack else []))
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(out["compressed"]) == 2
+    for k, (path, img) in enumerate(zip(out["compressed"], images)):
+        assert path.endswith(f"im{k}.pack" if pack else f"im{k}")
+        rec = tmp_path / f"rec{k}.png"
+        cli_main(["reassemble", path, "-o", str(rec)])
+        np.testing.assert_array_equal(load_image(rec), ensure_rgba(img))

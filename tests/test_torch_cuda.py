@@ -1,5 +1,7 @@
-"""CUDA kernels of the PyTorch port against their plain versions, on the
-card. Every test here needs a CUDA GPU and skips without one. This file
+"""CUDA kernels of the PyTorch port against their plain versions, and the
+device paths (solver, classical extractors, classical compress) against
+the CPU, on the card. Every test here needs a CUDA GPU and skips without
+one. This file
 imports no JAX, so it runs on a machine without the reference's
 dependencies:
 
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from image_compression_torch.config import Config, EdgeTarget
 from image_compression_torch.ops import multicut_leaf as leaf
 from image_compression_torch.ops.multicut import multicut_grid
 
@@ -110,3 +113,54 @@ def test_coin_bits_on_card_equal_cpu(cuda):
         key = prng.fold_in(prng.prng_key(2), salt)
         assert torch.equal(prng.random_bits(key, (77, 256), cuda).cpu(),
                            prng.random_bits(key, (77, 256)))
+
+
+def _photo_like(n, h, w, seed):
+    """Blocks of colour under mild noise, with a noisy patch, in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    img = np.repeat(np.repeat(rng.random((n, h // 16, w // 16, 3)), 16, 1),
+                    16, 2)
+    img = img + 0.03 * rng.standard_normal(img.shape)
+    img[:, -h // 4:, -w // 4:] = rng.random((n, h // 4, w // 4, 3))
+    return np.clip(img, 0, 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("target", list(EdgeTarget))
+def test_extractors_on_card_equal_cpu(cuda, target):
+    """Canny and watershed costs bitwise; graph and SLIC costs on >= 99%
+    of entries (their float sums may round apart without margin)."""
+    from image_compression_torch.ops.targets import compute_edge_costs
+    x = torch.as_tensor(_photo_like(2, 64, 96, seed=4))
+    got = compute_edge_costs(x.to(cuda), target).cpu()
+    want = compute_edge_costs(x, target)
+    if target in (EdgeTarget.CANNY, EdgeTarget.WATERSHED):
+        assert torch.equal(got, want)
+    else:
+        assert (got == want).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("target", [EdgeTarget.CANNY, EdgeTarget.GRAPH])
+def test_classical_compress_on_card_equals_cpu(cuda, tmp_path, target):
+    """compress_directory with classical costs over 3 batches (device and
+    host overlapped) writes the CPU's bytes, losslessly."""
+    from image_compression_torch.io import pypng
+    from image_compression_torch.io.image_io import ensure_rgba, load_image
+    from image_compression_torch.io.reassemble import reassemble_array
+    from image_compression_torch.pipeline import compress_directory
+    data = tmp_path / "data"
+    data.mkdir()
+    for i, img in enumerate(_photo_like(5, 64, 64, seed=5)):
+        (data / f"im{i}.png").write_bytes(pypng.encode(
+            (img * 255).astype(np.uint8)))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        cfg = Config(dataset_dir=str(data), results_dir=str(tmp_path / dev))
+        outs[dev] = compress_directory(cfg, classical=target, batch_size=2,
+                                       device=dev)
+    for c, g in zip(outs["cpu"], outs["cuda"]):
+        names = sorted(p.name for p in c.iterdir())
+        assert names == sorted(p.name for p in g.iterdir())
+        for name in names:
+            assert (c / name).read_bytes() == (g / name).read_bytes()
+        src = load_image(data / f"{g.name}.png")
+        np.testing.assert_array_equal(reassemble_array(g), ensure_rgba(src))

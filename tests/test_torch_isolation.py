@@ -1,7 +1,7 @@
 """The port runs where the reference's dependencies do not exist.
 
 A subprocess blocks every import of jax, jaxlib, flax, optax, orbax,
-tensorstore, PIL, triton and the JAX reference package, imports every
+tensorstore, PIL, triton, cv2 and the JAX reference package, imports every
 module of image_compression_torch, and runs `chip_smoke.py --device cpu
 --small` to its last line. The port's files are also searched for imports
 of those packages."""
@@ -14,7 +14,7 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "PIL",
-           "triton", "image_compression_tpu")
+           "triton", "cv2", "image_compression_tpu")
 
 
 def test_imports_and_smoke_without_reference_dependencies():

@@ -1,13 +1,15 @@
 """The whole compress slice of the PyTorch port vs the JAX reference
 (hier_agg="matrix", shipped settings otherwise) on 64x64 images: identical
-labels and connectivity bits, identical metadata.bin, identical decoded
-slice pixels (the PNG encoders differ, so bytes are not compared), and a
-lossless reassembly.
+labels and connectivity bits, identical metadata.bin and slice PNG bytes,
+and a lossless reassembly.
 
-Both sides get the same cost planes — signed edges of a fixed partition per
-image — so the comparison covers solver, fallback decision, merge
-refinement, wire and writer; the U-Net is compared separately
-(tests/test_torch_unet.py)."""
+The learned-cost cases give both sides the same cost planes — signed edges
+of a fixed partition per image — so the comparison covers solver, fallback
+decision, merge refinement, wire and writer; the U-Net is compared
+separately (tests/test_torch_unet.py). The classical cases run both
+sides' compress_directory end to end (canny and graph costs, slice files
+and packs), and a three-batch run, whose host and device halves overlap,
+against a one-batch run."""
 
 import numpy as np
 import pytest
@@ -18,9 +20,11 @@ import jax.numpy as jnp
 
 from image_compression_tpu import pipeline as jp
 from image_compression_tpu.config import Config as JConfig
+from image_compression_tpu.config import EdgeTarget as JEdgeTarget
 from image_compression_tpu.ops import edges as je
 from image_compression_torch import pipeline as tp
-from image_compression_torch.config import Config
+from image_compression_torch.config import Config, EdgeTarget
+from image_compression_torch.io import pypng
 from image_compression_torch.io.image_io import ensure_rgba, load_image
 from image_compression_torch.io.reassemble import reassemble_array
 from image_compression_torch.ops import edges as te
@@ -99,14 +103,22 @@ def test_connectivity_bits_and_single_flags(runs):
     assert not t_wire[2].all() and t_wire[2].any()  # some kept, some not
 
 
+def _assert_same_files(td, jd):
+    """Same file names, each byte-equal (slice PNGs and metadata.bin)."""
+    names = sorted(p.name for p in jd.iterdir())
+    assert names == sorted(p.name for p in td.iterdir())
+    assert "metadata.bin" in names
+    for name in names:
+        assert (td / name).read_bytes() == (jd / name).read_bytes(), name
+
+
 def test_metadata_and_slice_pixels(runs):
+    """metadata.bin and every slice PNG byte-equal (so the decoded pixels
+    are too)."""
     _, _, _, j_dirs, t_dirs = runs
     for jd, td in zip(j_dirs, t_dirs):
-        assert (td / "metadata.bin").read_bytes() == \
-            (jd / "metadata.bin").read_bytes()
-        names = sorted(p.name for p in jd.glob("slice_*.png"))
-        assert names == sorted(p.name for p in td.glob("slice_*.png"))
-        for name in names:
+        _assert_same_files(td, jd)
+        for name in (p.name for p in jd.glob("slice_*.png")):
             np.testing.assert_array_equal(load_image(td / name),
                                           load_image(jd / name))
 
@@ -157,16 +169,14 @@ def wide_run(tmp_path_factory):
 
 
 def test_non_square_image_matches_reference(wide_run):
-    """Labels, wire bits, metadata.bin bytes and decoded slice pixels equal
-    the reference's, and the slices reassemble losslessly."""
+    """Labels, wire bits, metadata.bin and slice PNG bytes equal the
+    reference's, and the slices reassemble losslessly."""
     img, j_labels, t_labels, j_wire, t_wire, jd, td = wide_run
     np.testing.assert_array_equal(j_labels, t_labels)
     for ref, got in zip(j_wire, t_wire):
         np.testing.assert_array_equal(ref, got)
-    assert (td / "metadata.bin").read_bytes() == \
-        (jd / "metadata.bin").read_bytes()
+    _assert_same_files(td, jd)
     names = sorted(p.name for p in jd.glob("slice_*.png"))
-    assert names == sorted(p.name for p in td.glob("slice_*.png"))
     assert len(names) > 1  # the slicing was kept
     for name in names:
         np.testing.assert_array_equal(load_image(td / name),
@@ -229,8 +239,8 @@ def tiny_runs(tmp_path_factory):
 
 
 def test_tiny_image_matches_reference(tiny_runs):
-    """12x12: labels, wire bits, metadata.bin bytes and decoded slice pixels
-    equal the reference's in both runs, the slices reassemble losslessly,
+    """12x12: labels, wire bits, metadata.bin and slice PNG bytes equal the
+    reference's in both runs, the slices reassemble losslessly,
     and without the fallback the solver's regions are written as several
     slices."""
     images, results = tiny_runs
@@ -240,8 +250,7 @@ def test_tiny_image_matches_reference(tiny_runs):
         for ref, got in zip(j_wire, t_wire):
             np.testing.assert_array_equal(ref, got)
         for img, jd, td in zip(images, j_dirs, t_dirs):
-            assert (td / "metadata.bin").read_bytes() == \
-                (jd / "metadata.bin").read_bytes()
+            _assert_same_files(td, jd)
             names = sorted(p.name for p in jd.glob("slice_*.png"))
             assert names == sorted(p.name for p in td.glob("slice_*.png"))
             for name in names:
@@ -251,3 +260,114 @@ def test_tiny_image_matches_reference(tiny_runs):
                                           ensure_rgba(img))
         if k == 1:  # three sorted rounds from singletons: partial merges
             assert all(len(list(d.glob("slice_*.png"))) > 1 for d in t_dirs)
+
+
+@pytest.fixture(scope="module")
+def classical_runs(tmp_path_factory):
+    """The five fixture images as PNG files through both sides'
+    compress_directory with canny and graph costs, as slice files and as
+    packs (one batch of five), and with canny and the fallback off (every
+    image sliced); plus both sides' device labels and wire."""
+    images, _ = _fixture()
+    root = tmp_path_factory.mktemp("classical")
+    data = root / "data"
+    data.mkdir()
+    for i, img in enumerate(images):
+        (data / f"im{i}.png").write_bytes(pypng.encode(img))
+    sizes = [(data / f"im{i}.png").stat().st_size for i in range(5)]
+    out = {}
+    for target in ("canny", "graph"):
+        jcfg = JConfig()  # the reference's shipped compress settings
+        cfg = Config()
+        j_labels = np.asarray(jp._device_labels(
+            images, lambda b: jp.classical_costs_signed(
+                b, JEdgeTarget(target)), jcfg, orig_sizes=sizes))
+        with torch.inference_mode():
+            t_labels = tp._device_labels(
+                images, lambda b: tp.classical_costs_signed(
+                    b, EdgeTarget(target)), cfg, torch.device("cpu"),
+                orig_sizes=sizes)
+        out[target, "labels"] = (j_labels, t_labels.numpy(),
+                                 jax.tree.map(np.asarray, jp._pack_wire(
+                                     jnp.asarray(j_labels))),
+                                 tp._pack_wire(t_labels))
+        runs = [("files", True), ("pack", True)]
+        if target == "canny":
+            runs.append(("files", False))
+        for container, fallback in runs:
+            key = f"{target}_{container}_{fallback}"
+            jcfg = JConfig(dataset_dir=str(data),
+                           results_dir=str(root / f"j_{key}"),
+                           slice_container=container,
+                           compress_fallback=fallback)
+            cfg = Config(dataset_dir=str(data),
+                         results_dir=str(root / f"t_{key}"),
+                         slice_container=container,
+                         compress_fallback=fallback)
+            out[target, container, fallback] = (
+                jp.compress_directory(jcfg,
+                                      classical=JEdgeTarget(target)),
+                tp.compress_directory(cfg, classical=EdgeTarget(target),
+                                      device="cpu"))
+    return images, data, out
+
+
+@pytest.mark.parametrize("target", ["canny", "graph"])
+def test_classical_labels_and_wire_match_reference(classical_runs, target):
+    _, _, out = classical_runs
+    j_labels, t_labels, j_wire, t_wire = out[target, "labels"]
+    np.testing.assert_array_equal(t_labels, j_labels)
+    for ref, got in zip(j_wire, t_wire):
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("target,container,fallback", [
+    ("canny", "files", True), ("canny", "pack", True),
+    ("canny", "files", False), ("graph", "files", True),
+    ("graph", "pack", True)])
+def test_classical_compress_directory_bytes(classical_runs, target,
+                                            container, fallback):
+    """Slice PNGs, metadata.bin and packs byte-equal to the reference's
+    compress_directory(classical=...); every output reassembles
+    losslessly; with graph costs, or without the fallback, some image
+    keeps a slicing."""
+    images, _, out = classical_runs
+    j_out, t_out = out[target, container, fallback]
+    assert [p.name for p in t_out] == [p.name for p in j_out]
+    kept = 0
+    for img, jd, td in zip(images, j_out, t_out):
+        if container == "pack":
+            assert td.read_bytes() == jd.read_bytes()
+        else:
+            _assert_same_files(td, jd)
+            kept += len(list(td.glob("slice_*.png"))) > 1
+        np.testing.assert_array_equal(reassemble_array(td), ensure_rgba(img))
+    if container == "files" and (target == "graph" or not fallback):
+        assert kept >= 1
+
+
+def test_overlapped_batches_equal_one_batch(classical_runs, tmp_path):
+    """Three batches of two (the host writes batch i while batch i + 1's
+    device half runs) give the bytes of the one-batch run."""
+    _, data, out = classical_runs
+    cfg = Config(dataset_dir=str(data), results_dir=str(tmp_path))
+    timings: dict = {}
+    dirs = tp.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                 batch_size=2, device="cpu", timings=timings)
+    _, one_batch = out["graph", "files", True]
+    assert [d.name for d in dirs] == [d.name for d in one_batch]
+    for td, od in zip(dirs, one_batch):
+        _assert_same_files(td, od)
+    assert set(timings) == {"costs", "solver", "fallback", "merge", "wire",
+                            "write"}
+
+
+def test_write_failure_raises_in_the_caller(classical_runs, tmp_path):
+    """A batch whose write fails in the worker thread raises from
+    compress_directory."""
+    _, data, _ = classical_runs
+    blocker = tmp_path / "results"
+    blocker.write_bytes(b"a file where the results directory should be")
+    cfg = Config(dataset_dir=str(data), results_dir=str(blocker))
+    with pytest.raises(OSError):
+        tp.compress_directory(cfg, batch_size=2, device="cpu")
