@@ -55,17 +55,34 @@ Phases, each printing one line with its own seconds:
      writer that ran and the leaf launches (which must be >= 1). Then SLIC
      and watershed compress the first 8 square images once, losslessly;
   8. photo scale: graph costs and the solve of one 1536x2048 image, with
-     seconds and peak memory.
-Then one JSON line describing each kernel, the card's name and power limit,
+     seconds and peak memory;
+  9. training at the flagship settings on the mixed corpus (16 train + 8
+     val 256x256 PNGs from the port's generators), full-width EdgeUNet
+     (base 64, bf16, batch 8): 5 pretrain steps on one batch lower its
+     loss; run_pretraining runs an epoch with validation and checkpoints;
+     REINFORCE steps (antithetic pairs, fallback-aware reward) give finite
+     rewards and each launch the leaf kernel; the RL solve and reward of
+     sampled costs rounded to 1/16 equal the CPU's; run_reinforce (an
+     epoch, interrupted by a SIGINT) sets the baseline, changes the params
+     and leaves an interrupt checkpoint that resumes at its step; the
+     run's best_params compress and reassemble losslessly through the CLI.
+     Printed: steps/s and images/s of both phases, RL stage seconds
+     (forward, solve + reward, update), leaf launches per step, peak
+     memory.
+Then one JSON line describing each kernel (its leaf launches of the main
+compress path under "launches", and per path under "launches_by_path":
+compress and run_reinforce), the card's name and power limit,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line. Without a GPU (and without --device cpu) the
 script exits non-zero at once.
 
---device cpu --small runs phases 0, 3, 4, 6 and 7 on the CPU at 64x64 (and
-one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in batches of
-4; the tiny cases as they are) with a base-8 U-Net, through the plain
-versions of the kernels; phase 6 then compares the CPU with itself, and
-there is no 3648x5472 field and no photo.
+--device cpu --small runs phases 0, 3, 4, 6, 7 and 9 on the CPU at 64x64
+(and one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in
+batches of 4; phase 9 with a base-8 U-Net on 4 + 2 images of 32x32 in
+batches of 2; the tiny cases as they are) with a base-8 U-Net, through the
+plain versions of the kernels, on 2 torch threads (the CPU's float sums
+depend on the thread count); phase 6 then compares the CPU with itself,
+and there is no 3648x5472 field and no photo.
 """
 
 from __future__ import annotations
@@ -82,6 +99,7 @@ import time
 
 import numpy as np
 
+CPU_THREADS = 2  # torch threads of the --device cpu rehearsal
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, same sheet
 REPO = pathlib.Path(__file__).resolve().parent
@@ -789,6 +807,271 @@ def phase_photo(torch) -> None:
             f"launches {multicut_leaf.launches}")
 
 
+def write_training_corpus(root: pathlib.Path, n_train: int, n_val: int,
+                          size: int) -> tuple[pathlib.Path, pathlib.Path]:
+    """The mixed corpus of the flagship configuration, made by the port's
+    generators: the 4-class cycle sigma, anticorr, mixedmos, flatnoise with
+    cells (64, 128) (at 256x256) from one generator seeded 0; the first
+    n_train images train, the next n_val validate. PNGs by the port's
+    encoder."""
+    from image_compression_torch.io import pypng
+    from image_compression_torch.utils import pattern_generator as pg
+
+    makers = {
+        "sigma": lambda rng, c: pg.generate_sigma_mosaic(size, size, rng,
+                                                         cell=c),
+        "anticorr": lambda rng, c: pg.generate_anticorr_mosaic(
+            size, size, rng, cell=c),
+        "mixedmos": lambda rng, c: pg.generate_mixed_mosaic(size, size, rng,
+                                                            cell=c),
+        "flatnoise": lambda rng, c: pg.generate_flat_noise_composite(
+            size, size, rng),
+    }
+    # cells 64 and 128 at 256x256, scaled with smaller sides
+    cycle, cells = list(makers), (size // 4, size // 2)
+    rng = np.random.default_rng(0)
+    dirs = root / "train", root / "val"
+    for d in dirs:
+        d.mkdir(parents=True)
+    for i in range(n_train + n_val):
+        tag = cycle[i % len(cycle)]
+        img, _ = makers[tag](rng, cells[(i // len(cycle)) % len(cells)])
+        d = dirs[0] if i < n_train else dirs[1]
+        (d / f"{tag}_{i:04d}.png").write_bytes(pypng.encode(img))
+    return dirs
+
+
+def phase_training(torch, device: str, small: bool) -> dict:
+    """Training on the device at the flagship settings: supervised
+    pretraining (r4_pre_mixed: the defaults, AdamW 1e-3, wd 1e-4; graph
+    targets) and REINFORCE (r4_rl_mixed: antithetic pairs, EMA baseline,
+    no whitening, lr 2e-5, entropy 1e-5, the fallback-aware reward) on the
+    mixed corpus, a full-width EdgeUNet (base 64, bf16, batch 8, 256x256).
+    Checks: 5 pretrain steps on one batch lower its loss; run_pretraining
+    runs an epoch with validation and checkpoints; RL steps give finite
+    rewards and launch the leaf kernel at least once each (3 epochs of the
+    train set, the first step untimed); run_reinforce
+    (an epoch of 2 steps, an evaluation after each) initializes the
+    baseline and changes the params; on the card the RL solve and reward
+    of sampled costs rounded to 1/16 equal the CPU's (labels bitwise,
+    rewards within 1e-5); a SIGINT during the run leaves an interrupt
+    checkpoint that resumes at its step; the run's best_params compress
+    and reassemble losslessly through the CLI. Returns the leaf launches of
+    the run_reinforce run."""
+    import signal
+
+    from image_compression_torch.cli.main import main as cli
+    from image_compression_torch.config import Config
+    from image_compression_torch.io.image_io import ensure_rgba, load_image
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.ops import multicut_leaf, prng
+    from image_compression_torch.ops.targets import create_target_with_mask
+    from image_compression_torch.train import steps
+    from image_compression_torch.train.data import ImageBatches
+    from image_compression_torch.train.pretrain import run_pretraining
+    from image_compression_torch.train.reinforce import run_reinforce
+
+    size, base, batch = (32, 8, 2) if small else (256, 64, 8)
+    n_train, n_val = (4, 2) if small else (16, 8)
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    with phase("training"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        train_dir, val_dir = write_training_corpus(tmp / "data", n_train,
+                                                   n_val, size)
+        cfg = Config(dataset_dir=str(train_dir), val_dataset_dir=str(val_dir),
+                     results_dir=str(tmp / "pre"), cache_dir=str(tmp / "c"),
+                     image_size=size)
+        cfg.pretrain.batch_size = cfg.rl.batch_size = batch
+        cfg.pretrain.epochs = cfg.rl.epochs = 1
+        cfg.rl.sampler, cfg.rl.baseline, cfg.rl.whiten = ("antithetic",
+                                                          "ema", False)
+        cfg.rl.lr, cfg.rl.entropy_coef, cfg.rl.eval_every = 2e-5, 1e-5, 1
+        cfg.reward.fallback_aware = True
+        log(f"  corpus: {n_train} train + {n_val} val {size}x{size} "
+            f"(sigma, anticorr, mixedmos, flatnoise; cells {size // 4}/"
+            f"{size // 2}; seed 0); "
+            f"EdgeUNet base {base} bf16, batch {batch}; multicut hier_agg "
+            f"{cfg.multicut.hier_agg!r}")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+        # 5 pretrain steps on one fixed batch lower its loss
+        images = next(ImageBatches(sorted(train_dir.glob("*.png")), batch,
+                                   size).epoch(0, shuffle=False))
+        x = torch.as_tensor(images).to(device)
+        with torch.no_grad():
+            targets = create_target_with_mask(x, cfg.edge_target)
+        state = steps.init_train_state(EdgeUNet(base=base), cfg, 0, device)
+        step_fn = steps.make_pretrain_step(cfg)
+        losses = [float(step_fn(state, x, targets)[1]["loss"])]  # warm-up
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(4):
+            losses.append(float(step_fn(state, x, targets)[1]["loss"]))
+        sync()
+        dt = time.perf_counter() - t0
+        after = float(steps.make_pretrain_eval(cfg)(state.model, x,
+                                                    targets)[0]["loss"])
+        if not all(np.isfinite(losses)) or not after < losses[0]:
+            raise AssertionError(f"pretrain loss did not fall: {losses} -> "
+                                 f"{after}")
+        log(f"  pretrain, 5 steps on one batch: loss {losses[0]:.5f} -> "
+            f"{after:.5f}; {4 / dt:.3f} steps/s, {4 * batch / dt:.3f} "
+            f"images/s (steps 2-5)")
+
+        # one epoch of run_pretraining: validation, checkpoints
+        t0 = time.perf_counter()
+        pre, run_id = run_pretraining(cfg, log=lambda *_: None,
+                                      device=device, model=EdgeUNet(base=base))
+        sync()
+        dt = time.perf_counter() - t0
+        prefix = f"fcn_pretrained_{run_id}_"
+        tags = sorted(p.name[len(prefix):]
+                      for p in (tmp / "pre").glob(prefix + "*"))
+        if pre.step != n_train // batch or tags != ["best", "epoch_1",
+                                                    "final"]:
+            raise AssertionError(f"run_pretraining: step {pre.step}, "
+                                 f"checkpoints {tags}")
+        log(f"  run_pretraining, 1 epoch: {pre.step} steps in {dt:.3f} s "
+            f"({pre.step / dt:.3f} steps/s with targets, validation and 3 "
+            f"full-state checkpoints); checkpoints {tags}")
+        params = {k: v.detach().clone() for k, v in
+                  pre.model.state_dict().items()}
+        del state, pre
+
+        # RL steps, each launching the leaf kernel
+        cfg.results_dir = str(tmp / "rl")
+        rl_state = steps.init_rl_state(
+            EdgeUNet(base=base).to(device), cfg)
+        rl_state.model.load_state_dict(params)
+        rl_step = steps.make_rl_step(cfg)
+        key = prng.prng_key(0)
+        data = ImageBatches(sorted(train_dir.glob("*.png")), batch, size,
+                            with_file_sizes=True)
+        timings: dict = {}
+        per_step = []
+        t_all = 0.0
+        batches = [b for epoch in range(3) for b in data.epoch(epoch)]
+        for i, (imgs, sizes) in enumerate(batches):
+            imgs_d = torch.as_tensor(imgs).to(device)
+            sizes_d = torch.as_tensor(sizes).to(device)
+            multicut_leaf.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            _, aux = rl_step(rl_state, key, imgs_d, sizes_d,
+                             timings=timings if i else None)
+            sync()
+            if i:
+                t_all += time.perf_counter() - t0
+            per_step.append(multicut_leaf.launches)
+            if not np.isfinite(float(aux["reward_mean"])):
+                raise AssertionError(f"RL step {i}: reward {aux}")
+        if cuda and min(per_step) < 1:
+            raise AssertionError(f"an RL step launched no leaf kernel: "
+                                 f"{per_step}")
+        n_timed = len(per_step) - 1
+        log(f"  RL step (antithetic: {2 * batch} solves): "
+            f"{n_timed / t_all:.3f} steps/s, {n_timed * batch / t_all:.3f} "
+            f"images/s (steps after the first); stage seconds per step "
+            + ", ".join(f"{k} {v / n_timed:.4f}" for k, v in timings.items())
+            + f"; leaf launches per step {per_step}")
+
+        # the RL solve and reward on the card equal the CPU's (sampled costs
+        # rounded to 1/16: exact in every sum, so the order cannot matter)
+        with torch.no_grad():
+            mu, sigma = rl_step.forward(rl_state, imgs_d)
+            w, _ = rl_step.solve_reward(key, rl_state.step, mu, sigma,
+                                        imgs_d, sizes_d)
+            q = torch.round(w * 16) / 16
+            imgs2 = torch.cat([imgs_d, imgs_d])
+            sizes2 = torch.cat([sizes_d, sizes_d])
+            lab, rew = steps.solve_and_reward(q, imgs2, sizes2, cfg)
+            if cuda:
+                lab_c, rew_c = steps.solve_and_reward(q.cpu(), imgs2.cpu(),
+                                                      sizes2.cpu(), cfg)
+                err = float((rew.cpu() - rew_c).abs().max())
+                if not torch.equal(lab.cpu(), lab_c) or not torch.allclose(
+                        rew.cpu(), rew_c, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"RL solve/reward differ from the "
+                                         f"CPU's (max reward diff {err})")
+                log(f"  RL solve and reward of {len(q)} samples rounded to "
+                    f"1/16: labels equal the CPU's, rewards within {err:.2e}")
+            log(f"  rewards (fallback-aware) of those samples: "
+                f"{[round(float(r), 5) for r in rew]}")
+        del rl_state
+
+        # run_reinforce; a SIGINT after the first evaluation leaves
+        # the interrupt checkpoint after the next step
+        evals = []
+
+        def rl_log(msg):
+            if msg.startswith("Eval reward"):
+                evals.append(msg)
+                if len(evals) == 1:
+                    signal.raise_signal(signal.SIGINT)
+
+        multicut_leaf.launches = 0
+        t0 = time.perf_counter()
+        rl, rl_id = run_reinforce(cfg, params, log=rl_log, device=device)
+        sync()
+        dt = time.perf_counter() - t0
+        launches = multicut_leaf.launches
+        interrupt = tmp / "rl" / f"fcn_training_{rl_id}_interrupt"
+        best = tmp / "rl" / f"fcn_training_{rl_id}_best_params"
+        changed = any(not torch.equal(v, params[k])
+                      for k, v in rl.model.state_dict().items())
+        baseline = float(rl.baseline)
+        if not (rl.step == n_train // batch and bool(rl.baseline_init)
+                and np.isfinite(baseline) and changed and interrupt.exists()
+                and best.exists() and len(evals) == 1):
+            raise AssertionError(f"run_reinforce: step {rl.step}, baseline "
+                                 f"{baseline} (set {bool(rl.baseline_init)})"
+                                 f", params changed {changed}, evals "
+                                 f"{evals}, interrupt {interrupt.exists()}")
+        if cuda and launches < rl.step:
+            raise AssertionError(f"run_reinforce launched the leaf kernel "
+                                 f"{launches} times in {rl.step} steps")
+        log(f"  run_reinforce, 1 epoch interrupted after step {rl.step}: "
+            f"{dt:.3f} s; baseline {baseline:.5f}; params changed; "
+            f"{evals[0]}; leaf launches {launches}")
+        del rl
+
+        cfg.rl.epochs = 2
+        msgs = []
+        resumed, _ = run_reinforce(cfg, params, log=msgs.append,
+                                   device=device, resume=str(interrupt))
+        if not any(f"at step {n_train // batch}" in m for m in msgs) or \
+                resumed.step != 2 * (n_train // batch):
+            raise AssertionError(f"resume: step {resumed.step}, {msgs[:1]}")
+        log(f"  resumed from the interrupt checkpoint at step "
+            f"{n_train // batch}, ran on to step {resumed.step}")
+        del resumed
+
+        # the best RL params through the CLI: compress, reassemble
+        out = tmp / "compressed"
+        cli(["compress", "--dataset-dir", str(val_dir), "--results-dir",
+             str(out), "--checkpoint", str(best), "--device", device])
+        n_slices = []
+        for src in sorted(val_dir.glob("*.png")):
+            rec = tmp / f"{src.stem}_rec.png"
+            cli(["reassemble", str(out / src.stem), "-o", str(rec)])
+            if not np.array_equal(load_image(rec),
+                                  ensure_rgba(load_image(src))):
+                raise AssertionError(f"{src.name}: not lossless")
+            n_slices.append(len(list((out / src.stem).glob("slice_*.png"))))
+        log(f"  compress --checkpoint best_params + reassemble: "
+            f"{len(n_slices)} images lossless, slices per image {n_slices}")
+        if cuda:
+            log(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                "GiB allocated")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -802,6 +1085,10 @@ def main(argv=None) -> int:
               "needs a CUDA GPU (or --device cpu)", file=sys.stderr)
         return 2
     import image_compression_torch  # noqa: F401  (fails outside the repo)
+    if args.device == "cpu":
+        # the CPU's float sums depend on the thread count; pin it so that
+        # the rehearsal does not depend on the machine's cores
+        torch.set_num_threads(CPU_THREADS)
 
     side, base = (64, 8) if args.small else (256, 64)
     batch = 8
@@ -827,6 +1114,8 @@ def main(argv=None) -> int:
             run(batch, 12, 12, 1.0, seed=4, need_slices=False,
                 why_no_leaf="sides under 16 take the sorted ensemble")]
     phase_env(torch, args.device)
+    if args.device == "cpu":
+        log(f"torch threads: {torch.get_num_threads()} (pinned)")
     kernels = []
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -841,9 +1130,12 @@ def main(argv=None) -> int:
     phase_classical(torch, args.device, side, 4 if args.small else batch)
     if args.device == "cuda":
         phase_photo(torch)
+    train_launches = phase_training(torch, args.device, args.small)
 
     if args.device == "cuda":
         kernels[0]["launches"] = launches[0]
+        kernels[0]["launches_by_path"] = {"compress": launches[0],
+                                          "training": train_launches}
         log(json.dumps({"kernels": kernels}))
         log(gpu_name_and_limit())
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

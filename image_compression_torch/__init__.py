@@ -3,7 +3,8 @@
 Runs the compress path of the JAX reference package (kept beside this one)
 on an NVIDIA GPU: U-Net or classical edge costs -> hierarchical multicut ->
 single-slice fallback -> merge refinement -> slice PNGs + `metadata.bin` (or
-one pack per image), and the lossless reassembly. The one Pallas kernel of
+one pack per image), and the lossless reassembly; and trains the U-Net
+(supervised pretraining, then REINFORCE on the size model's reward). The one Pallas kernel of
 the reference (the multicut leaf) is a hand-written CUDA kernel here
 (csrc/multicut_leaf.cu); the host PNG writer is the port's copy of the
 reference's native writer (csrc/pngio.cpp); everything else is plain
@@ -24,7 +25,11 @@ Layer map:
                 graph-based, SLIC, targets), multicut solver (+ CUDA leaf),
                 segment stats, PNG size estimator, fallback/merge support,
                 label wire
-  models/    -- EdgeUNet and the flax-params converter
+  models/    -- EdgeUNet, ValueNet, the flax-params and train-state
+                converters
+  train/     -- losses, metrics, policy, optimizers and steps, checkpoints,
+                data, the pretraining and REINFORCE loops
+  utils/     -- synthetic pattern generators (numpy)
   pipeline   -- compress driver
   cli/       -- `python -m image_compression_torch.cli.main`
 """

@@ -7,6 +7,10 @@
               (--classical slic|canny|graph|watershed, canny by default);
               --pack writes one SLPK file per image
   reassemble  rebuild one image from its slice directory or pack file
+  pretrain    supervised pretraining on classical targets (--epochs,
+              --resume a full-state checkpoint, --init-params a params file)
+  train       REINFORCE from pretrained params (--checkpoint, a params file
+              or a full-state checkpoint; --epochs, --resume)
 
 Runs on CUDA unless --device cpu is given.
 """
@@ -20,6 +24,16 @@ import sys
 from image_compression_torch.config import Config, EdgeTarget
 
 
+def _add_config_args(p) -> None:
+    p.add_argument("--config", help="JSON config file (Config.to_dict "
+                   "schema)")
+    p.add_argument("--dataset-dir", dest="dataset_dir")
+    p.add_argument("--val-dataset-dir", dest="val_dataset_dir")
+    p.add_argument("--results-dir", dest="results_dir")
+    p.add_argument("--image-size", dest="image_size", type=int)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
 def _load_config(args) -> Config:
     cfg = Config.from_json(args.config) if args.config else Config()
     for key in ("dataset_dir", "val_dataset_dir", "results_dir",
@@ -27,25 +41,24 @@ def _load_config(args) -> Config:
         val = getattr(args, key, None)
         if val is not None:
             setattr(cfg, key, val)
-    if args.pack:
+    if getattr(args, "pack", False):
         cfg.slice_container = "pack"
-    if args.no_fallback:
+    if getattr(args, "no_fallback", False):
         cfg.compress_fallback = False
     return cfg
 
 
 def cmd_compress(args):
-    import torch
-
     from image_compression_torch.models.unet import EdgeUNet
     from image_compression_torch.pipeline import compress_directory
+    from image_compression_torch.train.checkpoint import load_params
 
     cfg = _load_config(args)
     model = None
     if args.checkpoint:
-        model = EdgeUNet()
-        model.load_state_dict(torch.load(args.checkpoint, map_location="cpu",
-                                         weights_only=True))
+        params = load_params(args.checkpoint)
+        model = EdgeUNet(base=params["inc.conv0.weight"].shape[0])
+        model.load_state_dict(params)
     classical = EdgeTarget(args.classical) if args.classical else None
     dirs = compress_directory(cfg, model, limit=args.limit,
                               classical=classical, device=args.device)
@@ -62,20 +75,39 @@ def cmd_reassemble(args):
         sys.exit(1)
 
 
+def cmd_pretrain(args):
+    from image_compression_torch.train.pretrain import run_pretraining
+
+    cfg = _load_config(args)
+    if args.epochs:
+        cfg.pretrain.epochs = args.epochs
+    _state, run_id = run_pretraining(cfg, resume=args.resume,
+                                     init_params=args.init_params,
+                                     device=args.device)
+    print(f"pretraining done, run id {run_id}")
+
+
+def cmd_train(args):
+    from image_compression_torch.train.checkpoint import load_params
+    from image_compression_torch.train.reinforce import run_reinforce
+
+    cfg = _load_config(args)
+    if args.epochs:
+        cfg.rl.epochs = args.epochs
+    _state, run_id = run_reinforce(cfg, load_params(args.checkpoint),
+                                   resume=args.resume, device=args.device)
+    print(f"training done, run id {run_id}")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="image_compression_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("compress", help="segment + slice images")
-    p.add_argument("--config", help="JSON config file (Config.to_dict "
-                   "schema)")
-    p.add_argument("--dataset-dir", dest="dataset_dir")
-    p.add_argument("--val-dataset-dir", dest="val_dataset_dir")
-    p.add_argument("--results-dir", dest="results_dir")
-    p.add_argument("--image-size", dest="image_size", type=int)
+    _add_config_args(p)
     p.add_argument("--checkpoint",
-                   help="EdgeUNet state_dict saved with torch.save "
-                        "(learned costs)")
+                   help="EdgeUNet state_dict saved with torch.save, e.g. a "
+                        "training run's *_params file (learned costs)")
     p.add_argument("--classical", choices=[e.value for e in EdgeTarget],
                    help="classical extractor instead of the U-Net "
                         "(canny without a checkpoint)")
@@ -85,13 +117,29 @@ def main(argv=None):
                         "directory of slice PNGs (reassemble reads both)")
     p.add_argument("--no-fallback", action="store_true",
                    help="always slice (disable the single-slice fallback)")
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_compress)
 
     p = sub.add_parser("reassemble", help="rebuild an image from slices")
     p.add_argument("slice_dir")
     p.add_argument("-o", "--output", default="reconstructed.png")
     p.set_defaults(fn=cmd_reassemble)
+
+    p = sub.add_parser("pretrain", help="supervised pretraining")
+    _add_config_args(p)
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--resume", help="full-state checkpoint to continue from")
+    p.add_argument("--init-params", help="params file to warm-start from "
+                   "(optimizer state and step start fresh)")
+    p.set_defaults(fn=cmd_pretrain)
+
+    p = sub.add_parser("train", help="REINFORCE training")
+    _add_config_args(p)
+    p.add_argument("--checkpoint", required=True,
+                   help="pretrained params: a *_params file or a full-state "
+                        "checkpoint")
+    p.add_argument("--epochs", type=int)
+    p.add_argument("--resume", help="RL checkpoint to continue from")
+    p.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)
     args.fn(args)

@@ -101,20 +101,21 @@ class EdgeUNet(nn.Module):
 
 
 def init_random_(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded random weights, the same on every device: conv kernels
-    ~ N(0, 1/fan_in) (flax's default lecun-normal scale), zero biases, unit
-    GroupNorm scales. Drawn on the CPU from a torch.Generator, then copied."""
+    """Seeded random weights, the same on every device: conv and dense
+    kernels ~ N(0, 1/fan_in) (flax's default lecun-normal scale), zero
+    biases, unit GroupNorm scales. Drawn on the CPU from a torch.Generator,
+    then copied."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            module = model.get_submodule(name.rsplit(".", 1)[0])
             if name.endswith("bias"):
                 p.zero_()
-            elif ".norm" in name:
+            elif isinstance(module, nn.GroupNorm):
                 p.fill_(1.0)
             else:
-                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                if isinstance(model.get_submodule(name.rsplit(".", 1)[0]),
-                              nn.ConvTranspose2d):
+                fan_in = p[0].numel()  # in x kh x kw, or in of a dense
+                if isinstance(module, nn.ConvTranspose2d):
                     fan_in = p.shape[0] * p.shape[2] * p.shape[3]
                 p.copy_(torch.randn(p.shape, generator=gen)
                         / fan_in ** 0.5)

@@ -16,9 +16,10 @@ segment:
   5. S = overhead_base + h + N * b_data / 8,
      b_data = (1 - f)(H + beta) + f (b_match_token / L + gamma).
 
-Every segment slot is evaluated inside a square crop of the smallest size
-class that holds its bbox, all slots of a class at once (a written-out slot
-dimension). Sizes agree with the reference within a relative 1e-5 (f32 sums
+The size-bucketed estimators evaluate every segment slot inside a square
+crop of the smallest size class that holds its bbox, all slots of a class
+at once (a written-out slot dimension); the flat estimator evaluates each
+slot over the whole image. Sizes agree with the reference within a relative 1e-5 (f32 sums
 may be grouped differently). The formulas mirror the reference's estimator
 and its scalar oracle tests; do not "fix" them here alone.
 """
@@ -321,6 +322,34 @@ def _est_kwargs(min_pixels=1, l_min=4, beta=0.012167, b_match_token=18.0,
                 entropy_correction=entropy_correction,
                 literal_hist=literal_hist, distance_window=distance_window,
                 max_period=max_period)
+
+
+def estimate_segment_png_sizes(imgs_u8: torch.Tensor, inverse: torch.Tensor,
+                               counts: torch.Tensor, bboxes: torch.Tensor,
+                               valid: torch.Tensor, *, chunk: int = 8,
+                               **kwargs) -> torch.Tensor:
+    """Flat estimator: every slot evaluated over the whole image (the
+    reference's `estimate_segment_png_sizes`, batched). Shapes as in
+    `estimate_segment_png_sizes_fast`; returns [B, k_max] f32. Slots run
+    `chunk` at a time to bound memory (each is a handful of full-image
+    planes). A crop holding the bbox gives the same value, so the two
+    estimators agree wherever the fast one evaluates a slot."""
+    batch, height, width, chans = imgs_u8.shape
+    k_max = counts.shape[1]
+    est_kwargs = _est_kwargs(**kwargs)
+    dev = imgs_u8.device
+    b_all = torch.arange(batch, device=dev).repeat_interleave(k_max)
+    k_all = torch.arange(k_max, device=dev).repeat(batch)
+    counts_f, valid_f = counts.reshape(-1), valid.reshape(-1)
+    bboxes_f = bboxes.reshape(-1, 4)
+    out = []
+    for i in range(0, batch * k_max, chunk):
+        sl = slice(i, i + chunk)
+        b_idx = b_all[sl]
+        out.append(segment_sizes(imgs_u8[b_idx], inverse[b_idx], k_all[sl],
+                                 bboxes_f[sl], counts_f[sl], valid_f[sl],
+                                 **est_kwargs))
+    return torch.cat(out).reshape(batch, k_max)
 
 
 def estimate_segment_png_sizes_fast(imgs_u8: torch.Tensor,

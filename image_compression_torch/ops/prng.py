@@ -64,12 +64,54 @@ def random_bits(key: tuple[int, int], shape, device=None) -> torch.Tensor:
     return (b0 ^ b1).reshape(tuple(shape))
 
 
-def uniform(key: tuple[int, int], shape, device=None) -> torch.Tensor:
-    """`jax.random.uniform(key, shape)` in f32: the top 23 bits as the
-    mantissa of a float in [1, 2), minus 1."""
+def _unit_floats(key: tuple[int, int], shape, device=None) -> torch.Tensor:
+    """f32 in [0, 1): the top 23 bits as the mantissa of a float in [1, 2),
+    minus 1."""
     bits = random_bits(key, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return torch.clamp(f - 1.0, min=0.0)
+    return f - 1.0
+
+
+def uniform(key: tuple[int, int], shape, device=None) -> torch.Tensor:
+    """`jax.random.uniform(key, shape)` in f32."""
+    return torch.clamp(_unit_floats(key, shape, device), min=0.0)
+
+
+# Giles' single-precision erfinv ("Approximating the erfinv function", GPU
+# Computing Gems, 2011): the polynomial XLA evaluates for f32 erf_inv.
+# torch.erfinv is more accurate in the tails and so differs from
+# jax.random.normal by up to 7.5e-5 there; this form stays within 5e-7.
+_ERFINV_CENTRAL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_TAIL = (-0.000200214257, 0.000100950558, 0.00134934322,
+                -0.00367342844, 0.00573950773, -0.0076224613,
+                0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """erfinv of f32 x in (-1, 1) by Giles' polynomial (+-inf at +-1)."""
+    w = -torch.log1p(-x * x)
+    central = w < 5.0
+    w = torch.where(central, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(central, _ERFINV_CENTRAL[0], _ERFINV_TAIL[0])
+    for c_central, c_tail in zip(_ERFINV_CENTRAL[1:], _ERFINV_TAIL[1:]):
+        p = torch.where(central, c_central, c_tail) + p * w
+    return torch.where(x.abs() == 1.0, x * float("inf"), p * x)
+
+
+_NORMAL_LO = -0.99999994  # nextafter(-1, 0) in f32
+
+
+def normal(key: tuple[int, int], shape, device=None) -> torch.Tensor:
+    """`jax.random.normal(key, shape)` in f32: uniform on
+    [nextafter(-1, 0), 1) from the same bits (bitwise jax's), then
+    sqrt(2) * erfinv. Within 1e-6 of jax's values (only erfinv's rounding
+    differs)."""
+    lo = torch.tensor(_NORMAL_LO, dtype=torch.float32)
+    u = _unit_floats(key, shape, device) * 2.0 + lo.to(device)
+    u = torch.maximum(u, lo.to(u.device))
+    return torch.tensor(2.0 ** 0.5, dtype=torch.float32) * erfinv_f32(u)
 
 
 def bernoulli(key: tuple[int, int], p: float, shape,

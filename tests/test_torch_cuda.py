@@ -164,3 +164,68 @@ def test_classical_compress_on_card_equals_cpu(cuda, tmp_path, target):
             assert (c / name).read_bytes() == (g / name).read_bytes()
         src = load_image(data / f"{g.name}.png")
         np.testing.assert_array_equal(reassemble_array(g), ensure_rgba(src))
+
+
+def _rl_cfg():
+    cfg = Config()
+    cfg.rl.sampler, cfg.rl.whiten = "antithetic", False
+    cfg.reward.fallback_aware = True
+    cfg.reward.max_segments = 16
+    return cfg
+
+
+def test_training_steps_on_card(cuda):
+    """A few pretrain steps lower the loss of their batch (bf16 U-Net, f32
+    parameters); RL steps give finite rewards, set the baseline, change
+    the params and launch the leaf kernel each step."""
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.ops import prng
+    from image_compression_torch.ops.targets import create_target_with_mask
+    from image_compression_torch.train import steps
+    cfg = _rl_cfg()
+    x = torch.as_tensor(_photo_like(2, 64, 64, seed=6), device=cuda)
+    targets = create_target_with_mask(x, EdgeTarget.GRAPH)
+    state = steps.init_train_state(EdgeUNet(base=8), cfg, 0, cuda)
+    step = steps.make_pretrain_step(cfg)
+    first = float(step(state, x, targets)[1]["loss"])
+    for _ in range(3):
+        step(state, x, targets)
+    after = float(steps.make_pretrain_eval(cfg)(state.model, x,
+                                                targets)[0]["loss"])
+    assert np.isfinite(first) and after < first
+
+    rl = steps.init_rl_state(state.model, cfg)
+    before = {k: v.clone() for k, v in rl.model.state_dict().items()}
+    rl_step = steps.make_rl_step(cfg)
+    sizes = torch.full((2,), 9000.0, device=cuda)
+    for _ in range(2):
+        n0 = leaf.launches
+        _, aux = rl_step(rl, prng.prng_key(0), x, sizes)
+        assert leaf.launches > n0
+        assert np.isfinite(float(aux["reward_mean"]))
+    assert rl.step == 2 and bool(rl.baseline_init)
+    assert any(not torch.equal(v, before[k])
+               for k, v in rl.model.state_dict().items())
+
+
+def test_rl_solve_and_reward_on_card_equal_cpu(cuda):
+    """Sampled costs rounded to 1/16 (exact in every sum): the RL solve's
+    labels equal the CPU's bitwise, the rewards within 1e-5."""
+    from image_compression_torch.ops import prng
+    from image_compression_torch.train import steps
+    from image_compression_torch.train.policy import sample_antithetic_policy
+    cfg = _rl_cfg()
+    x = torch.as_tensor(_photo_like(2, 64, 64, seed=7))
+    rng = np.random.default_rng(8)
+    e = 2 * 64 * 63
+    mu = torch.as_tensor(rng.normal(0.5, 1.0, (2, e)).astype(np.float32))
+    sigma = torch.full((2, e), 0.5)
+    w = sample_antithetic_policy(prng.prng_key(3), mu, sigma).w
+    q = torch.round(w * 16) / 16
+    x2 = torch.cat([x, x])
+    sizes = torch.tensor([9000.0, 7000.0, 9000.0, 7000.0])
+    lab_c, rew_c = steps.solve_and_reward(q, x2, sizes, cfg)
+    lab_g, rew_g = steps.solve_and_reward(q.to(cuda), x2.to(cuda),
+                                          sizes.to(cuda), cfg)
+    assert torch.equal(lab_g.cpu(), lab_c)
+    assert torch.allclose(rew_g.cpu(), rew_c, rtol=1e-5, atol=1e-6)
