@@ -68,21 +68,46 @@ Phases, each printing one line with its own seconds:
      run's best_params compress and reassemble losslessly through the CLI.
      Printed: steps/s and images/s of both phases, RL stage seconds
      (forward, solve + reward, update), leaf launches per step, peak
-     memory.
+     memory;
+ 10. spatial solve: multicut_grid_spatial on real-valued piecewise-smooth
+     costs (4096x4096 over Mesh([cuda:0] * 4) and 2048x2048 over 8 strips
+     with matrix aggregation; 1024x1024 over 4 and 8 with pixel
+     aggregation, whose dense top-level operands do not fit one card at
+     4096^2; over distinct cards too where there are several) equals the
+     unsharded solve bit for bit; the matrix runs' strips launch the leaf
+     kernel, the pixel runs nothing; the leaf kernel at the 4096^2
+     strips' shape (T1 = 65,536, s1 = 128, rounds (3, 2)) equals its
+     plain version bitwise on integer costs. Printed: sharded and
+     unsharded seconds and peak memory, the leaf's and the plain
+     version's time at that shape. Sharded canny (1024x1024, 4 strips) on
+     the card equals the CPU's;
+ 11. data parallel: run_pretraining and run_reinforce (2 steps each, 8 x
+     256x256, base 64) with use_mesh=True, without a process group and
+     then in a world of one over NCCL (file:// rendezvous): losses,
+     rewards, metrics and parameters equal bit for bit, the RL steps
+     launch the leaf kernel; then steps/s with and without the group's
+     reductions, in turns;
+ 12. convert: the CLI's convert on 6 PNGs (480x640, 300x200) on the card;
+     the outputs decode and are within 1 level of the CPU converter's;
+ 13. trace: one 8 x 256x256 learned-cost compress batch inside
+     utils/profiling.device_trace; the exported trace names leaf_kernel;
+     printed: the device's busy share of the batch and PhaseTimer's JSON.
 Then one JSON line describing each kernel (its leaf launches of the main
 compress path under "launches", and per path under "launches_by_path":
-compress and run_reinforce), the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}. Any failure exits
-non-zero before that line. Without a GPU (and without --device cpu) the
-script exits non-zero at once.
+compress, run_reinforce, the sharded solves and the data-parallel run),
+the card's name and power limit, and as the last line {"ok": true,
+"device": {...}}. Any failure exits non-zero before that line. Without a
+GPU (and without --device cpu) the script exits non-zero at once.
 
---device cpu --small runs phases 0, 3, 4, 6, 7 and 9 on the CPU at 64x64
-(and one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in
-batches of 4; phase 9 with a base-8 U-Net on 4 + 2 images of 32x32 in
-batches of 2; the tiny cases as they are) with a base-8 U-Net, through the
-plain versions of the kernels, on 2 torch threads (the CPU's float sums
-depend on the thread count); phase 6 then compares the CPU with itself,
-and there is no 3648x5472 field and no photo.
+--device cpu --small runs phases 0, 3, 4, 6, 7 and 9-13 on the CPU at
+64x64 (and one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in
+batches of 4; phases 9 and 11 with a base-8 U-Net on 32x32 images in
+batches of 2, phase 11 in a world of one over gloo; phase 10 at 128x128
+over 8 CPU strips with both aggregations and sharded canny at 64x64; the
+tiny cases as they are) with a base-8 U-Net, through the plain versions of
+the kernels, on 2 torch threads (the CPU's float sums depend on the thread
+count); phase 6 then compares the CPU with itself, and there is no
+3648x5472 field and no photo.
 """
 
 from __future__ import annotations
@@ -219,13 +244,14 @@ def leaf_bound(t1: int, s1: int, r0: int, r1: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _leaf_equal(torch, ml, name: str, costs: np.ndarray,
-                s1: int) -> tuple[float, int]:
-    """Kernel vs plain version on one input, every field bitwise; returns
-    the largest absolute difference (0) and the regions frozen."""
+def _leaf_equal(torch, ml, name: str, costs: np.ndarray, s1: int,
+                r0: int = 2, r1: int = 1) -> tuple[float, int]:
+    """Kernel vs plain version on one input (rounds r0 at level 0, r1 at
+    level 1), every field bitwise; returns the largest absolute difference
+    (0) and the regions frozen."""
     fields = ("rank", "gid", "sym", "m", "ncand", "over")
     costs = torch.as_tensor(costs.astype(np.float32), device="cuda")
-    args = (*ml.leaf_inputs(costs), s1, 2, 1,
+    args = (*ml.leaf_inputs(costs), s1, r0, r1,
             costs.shape[1] * costs.shape[2])
     got = ml.leaf_cuda(*args)
     want = ml.leaf_plain(*args)
@@ -240,8 +266,8 @@ def _leaf_equal(torch, ml, name: str, costs: np.ndarray,
         if not torch.equal(a, b):
             raise AssertionError(f"leaf {name}: field {f} differs from the "
                                  f"plain version by {diff}")
-    log(f"  {name} (T1={args[0].shape[0]}, s1={s1}): all fields bitwise "
-        f"equal, {int(got[5].sum())} regions frozen")
+    log(f"  {name} (T1={args[0].shape[0]}, s1={s1}, rounds ({r0}, {r1})): "
+        f"all fields bitwise equal, {int(got[5].sum())} regions frozen")
     return max_err, int(got[5].sum())
 
 
@@ -1072,6 +1098,396 @@ def phase_training(torch, device: str, small: bool) -> dict:
     return launches
 
 
+def smooth_costs(size: int, seed: int) -> np.ndarray:
+    """Piecewise-smooth real-valued f32 costs [size, size, 2] from a numpy
+    seed (16-pixel blocks of random colour plus noise; the shape of
+    tests/test_torch_spatial.py's field)."""
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(size // 16 + 1, size // 16 + 1, 3))
+    img = np.repeat(np.repeat(base, 16, 0), 16, 1)[:size, :size]
+    img = img + 0.1 * rng.standard_normal(img.shape, dtype=np.float32)
+    img = (img - img.min()) / (img.max() - img.min())
+    dh = np.abs(np.diff(img, axis=1, append=img[:, -1:])).sum(-1)
+    dv = np.abs(np.diff(img, axis=0, append=img[-1:, :])).sum(-1)
+    costs = np.stack([1.0 - 8.0 * dh, 1.0 - 8.0 * dv], axis=-1)
+    return np.clip(costs, -2, 2).astype(np.float32)
+
+
+def phase_spatial(torch, device: str, small: bool) -> int:
+    """The spatially sharded solve (parallel/spatial.py) against the
+    unsharded one on real-valued piecewise-smooth costs: labels bit for
+    bit, the leaf kernel launched by the matrix runs' strips and by no
+    pixel run; seconds and peak memory of both. Sharded canny on the card
+    equals the CPU's. The leaf kernel at the 4096^2 strips' shape is held
+    bitwise to its plain version. Returns the leaf launches of the sharded
+    runs and the kernel's largest absolute difference from the plain
+    version."""
+    from image_compression_torch.ops import multicut_leaf as ml
+    from image_compression_torch.ops.multicut import multicut_grid
+    from image_compression_torch.ops.multicut_hier import (default_caps,
+                                                           plan_levels)
+    from image_compression_torch.parallel.mesh import make_mesh
+    from image_compression_torch.parallel.spatial import (
+        multicut_grid_spatial, sharded_edge_costs)
+
+    cuda = device == "cuda"
+    # pixel aggregation builds dense one-hot [1, 2 H W, S] operands at the
+    # top level (~2 x 43 GB at 4096^2, ~2 x 19 GB at 2048^2), so its runs
+    # are smaller than the matrix runs
+    runs = ([("matrix", 128, 8), ("pixel", 128, 8)] if small else
+            [("matrix", 4096, 4), ("matrix", 2048, 8), ("pixel", 1024, 4),
+             ("pixel", 1024, 8)])
+    if cuda and torch.cuda.device_count() > 1:
+        runs.append(("matrix", 2048, torch.cuda.device_count()))
+    launches, max_err = 0, 0.0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    with phase("spatial solve"):
+        warm = torch.as_tensor(smooth_costs(256, 0), device=device)
+        for agg in ("matrix", "pixel"):
+            multicut_grid(warm[None], icm_sweeps=0, hier_agg=agg)
+            multicut_grid_spatial(warm, make_mesh([device] * 4), agg=agg)
+        for i, (agg, size, n) in enumerate(runs):
+            costs = torch.as_tensor(smooth_costs(size, 40 + i),
+                                    device=device)
+            devices = ([f"cuda:{k}" for k in range(n)]
+                       if cuda and i == 4 else [device] * n)
+            mesh = make_mesh(devices)
+            times, peaks = [], []
+            for sharded in (False, True):
+                sync()
+                if cuda:
+                    torch.cuda.reset_peak_memory_stats()
+                n0 = ml.launches
+                t0 = time.perf_counter()
+                if sharded:
+                    labels = multicut_grid_spatial(costs, mesh, agg=agg)
+                else:
+                    whole = multicut_grid(costs[None], icm_sweeps=0,
+                                          hier_agg=agg)[0]
+                sync()
+                times.append(time.perf_counter() - t0)
+                peaks.append(f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                             if cuda else "not measured")
+                delta = ml.launches - n0
+            if not torch.equal(labels.to(whole.device), whole):
+                raise AssertionError(f"spatial {agg} {size}^2 over {n}: "
+                                     "labels differ from the unsharded "
+                                     "solve")
+            if cuda and (delta > 0) != (agg == "matrix"):
+                raise AssertionError(f"spatial {agg} {size}^2: leaf "
+                                     f"launches {delta}")
+            if agg == "matrix":
+                launches += delta
+            log(f"  {agg} {size}x{size} over {n} strips "
+                f"({'cards ' + str(devices) if i == 4 else devices[0]}): "
+                f"sharded {times[1]:.4f} s, unsharded {times[0]:.4f} s; "
+                f"peak GiB allocated {peaks[1]} / {peaks[0]}; "
+                f"{int(torch.unique(whole).numel())} regions; labels "
+                f"equal bit for bit; leaf launches in the strips {delta}")
+        if cuda:
+            # the leaf kernel at the 4096^2 strips' shapes (4 x 1024x4096:
+            # 65,536 supertiles, the default caps' s1 = 128, the default
+            # schedule's rounds (3, 2)): bitwise to the plain version on
+            # integer costs, then timed on the real-valued strips
+            s1 = int(default_caps(plan_levels(4096, 4096))[1])
+            strips = (4, 1024, 4096, 2)
+            ints = np.random.default_rng(41).integers(-8, 9, size=strips)
+            err, _ = _leaf_equal(torch, ml, "4096^2 strips, integer costs",
+                                 ints, s1, 3, 2)
+            max_err = max(max_err, err)
+            # the third level-0 and second level-1 rounds did work there
+            inputs = ml.leaf_inputs(torch.as_tensor(
+                ints.astype(np.float32), device="cuda"))
+            if all(torch.equal(a, b) for a, b in zip(
+                    ml.leaf_cuda(*inputs, s1, 3, 2, 1024 * 4096),
+                    ml.leaf_cuda(*inputs, s1, 2, 1, 1024 * 4096))):
+                raise AssertionError("rounds (3, 2) changed nothing over "
+                                     "(2, 1) on the strips' integer costs")
+            del inputs
+            costs = torch.as_tensor(smooth_costs(4096, 40), device="cuda")
+            args = (*ml.leaf_inputs(costs.reshape(strips)), s1, 3, 2,
+                    1024 * 4096)
+            k_ms = cuda_ms(torch, lambda: ml.leaf_cuda(*args), iters=10)
+            p_ms = cuda_ms(torch, lambda: ml.leaf_plain(*args), iters=2,
+                           warmup=1)
+            b_ms, b_by = leaf_bound(args[0].shape[0], s1, 3, 2)
+            log(f"  leaf in the 4096^2 strips (T1={args[0].shape[0]}, "
+                f"s1={s1}, rounds (3, 2)): {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        side, n = (64, 4) if small else (1024, 4)
+        img = torch.as_tensor(np.stack(make_images(1, side, side, seed=51))[0]
+                              / 255.0, dtype=torch.float32)
+        want = sharded_edge_costs(img, make_mesh(["cpu"] * n))
+        t0 = time.perf_counter()
+        got = sharded_edge_costs(img.to(device), make_mesh([device] * n))
+        sync()
+        dt = time.perf_counter() - t0
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("sharded canny differs from the CPU's")
+        log(f"  sharded canny {side}x{side} over {n} strips on {device}: "
+            f"{dt:.4f} s; equals the CPU's sharded canny on every entry")
+    return launches, max_err
+
+
+def _jsonl(d: pathlib.Path) -> list[dict]:
+    (path,) = d.glob("metrics_*.jsonl")
+    return [{k: v for k, v in json.loads(line).items()
+             if k not in ("time", "seconds")}  # the host's clock
+            for line in path.read_text().splitlines()]
+
+
+def step_rates(torch, device: str, cfg, base: int, train_dir, batch: int
+               ) -> None:
+    """Steps/s of the pretrain and RL steps with the group's reductions
+    (data_parallel=True) and without them, in turns on one batch."""
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.ops import prng
+    from image_compression_torch.ops.targets import create_target_with_mask
+    from image_compression_torch.train import steps
+    from image_compression_torch.train.data import ImageBatches
+
+    imgs, sizes = next(ImageBatches(sorted(train_dir.glob("*.png")), batch,
+                                    cfg.image_size, with_file_sizes=True
+                                    ).epoch(0, shuffle=False))
+    x = torch.as_tensor(imgs).to(device)
+    s = torch.as_tensor(sizes).to(device)
+    with torch.no_grad():
+        targets = create_target_with_mask(x, cfg.edge_target)
+    state = steps.init_train_state(EdgeUNet(base=base), cfg, 0, device)
+    rl_state = steps.init_rl_state(
+        steps.init_train_state(EdgeUNet(base=base), cfg, 0, device).model,
+        cfg)
+    key = prng.prng_key(0)
+    runs = {}
+    for dp in (True, False):
+        pre = steps.make_pretrain_step(cfg, data_parallel=dp)
+        rl = steps.make_rl_step(cfg, data_parallel=dp)
+        runs[dp] = (lambda pre=pre: pre(state, x, targets),
+                    lambda rl=rl: rl(rl_state, key, x, s))
+        for fn in runs[dp]:
+            fn()  # warm-up
+    rates: dict = {}
+    for dp in (True, False, False, True):
+        for kind, fn, n in (("pretrain", runs[dp][0], 5),
+                            ("RL", runs[dp][1], 3)):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rates.setdefault((kind, dp), []).append(
+                n / (time.perf_counter() - t0))
+    log(f"  steps/s at {batch} images a step (group reductions on; off), "
+        "two turns each: " + "; ".join(
+            f"{kind} {', '.join(f'{r:.3f}' for r in rates[(kind, True)])}"
+            f"; {', '.join(f'{r:.3f}' for r in rates[(kind, False)])}"
+            for kind in ("pretrain", "RL")))
+
+
+def phase_data_parallel(torch, device: str, small: bool) -> int:
+    """The training loops with use_mesh=True inside a process group of
+    one rank (NCCL on the card, gloo on the CPU; file:// rendezvous): 2
+    pretrain steps then 2 RL steps at the flagship width, whose losses,
+    rewards, metrics and parameters equal bit for bit the same loops' run
+    without a process group. Returns the group run's leaf launches."""
+    import torch.distributed as dist
+
+    from image_compression_torch.config import Config
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.ops import multicut_leaf as ml
+    from image_compression_torch.parallel import mesh
+    from image_compression_torch.train.pretrain import run_pretraining
+    from image_compression_torch.train.reinforce import run_reinforce
+
+    size, base, batch = (32, 8, 2) if small else (256, 64, 8)
+    cuda = device == "cuda"
+    deterministic = torch.backends.cudnn.deterministic
+    with phase("data parallel"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        train_dir, val_dir = write_training_corpus(tmp / "data", 2 * batch,
+                                                   batch, size)
+        # cuDNN's default backward algorithms may sum in any order
+        torch.backends.cudnn.deterministic = True
+        results = {}
+        try:
+            for name in ("no group", "group"):
+                if name == "group":
+                    mesh.initialize_distributed(
+                        "file://" + str(tmp / "rendezvous"), 1, 0, device)
+                    log(f"  process group: backend "
+                        f"{dist.get_backend()}, world {mesh.world()}")
+                cfg = Config(dataset_dir=str(train_dir),
+                             val_dataset_dir=str(val_dir),
+                             results_dir=str(tmp / name / "pre"),
+                             cache_dir=str(tmp / name / "cache"),
+                             image_size=size)
+                cfg.pretrain.batch_size = cfg.rl.batch_size = batch
+                cfg.pretrain.epochs = cfg.rl.epochs = 1
+                cfg.rl.sampler, cfg.rl.eval_every = "antithetic", 1
+                cfg.reward.fallback_aware = True
+                t0 = time.perf_counter()
+                pre, _ = run_pretraining(cfg, log=lambda *_: None,
+                                         device=device,
+                                         model=EdgeUNet(base=base),
+                                         use_mesh=True)
+                if cuda:
+                    torch.cuda.synchronize()
+                t_pre = time.perf_counter() - t0
+                params = {k: v.detach().clone()
+                          for k, v in pre.model.state_dict().items()}
+                cfg.results_dir = str(tmp / name / "rl")
+                ml.launches = 0
+                t0 = time.perf_counter()
+                rl, _ = run_reinforce(cfg, params, log=lambda *_: None,
+                                      device=device, use_mesh=True)
+                if cuda:
+                    torch.cuda.synchronize()
+                t_rl = time.perf_counter() - t0
+                results[name] = dict(
+                    pre=params, rl=rl.model.state_dict(),
+                    baseline=rl.baseline.clone(), launches=ml.launches,
+                    records=_jsonl(tmp / name / "pre")
+                    + _jsonl(tmp / name / "rl"), step=(pre.step, rl.step))
+                log(f"  {name}: run_pretraining {pre.step} steps "
+                    f"{t_pre:.3f} s, run_reinforce {rl.step} steps "
+                    f"{t_rl:.3f} s (with validation, evaluation and "
+                    f"checkpoints); leaf launches {ml.launches}")
+                del pre, rl
+            step_rates(torch, device, cfg, base, train_dir, batch)
+        finally:
+            if mesh.distributed():
+                dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+        a, b = results["no group"], results["group"]
+        same = (a["step"] == b["step"] == (2, 2)
+                and a["records"] == b["records"]
+                and torch.equal(a["baseline"], b["baseline"])
+                and all(torch.equal(a[k][p], b[k][p])
+                        for k in ("pre", "rl") for p in a[k]))
+        if not same:
+            raise AssertionError(f"data parallel: the group's run differs: "
+                                 f"{a['records']} vs {b['records']}")
+        if cuda and b["launches"] < 2:
+            raise AssertionError(f"data parallel: {b['launches']} leaf "
+                                 "launches in 2 RL steps")
+        rl_rec = [r for r in b["records"] if r.get("phase") == "rl"]
+        log(f"  group equals no group bit for bit: {len(b['records'])} "
+            f"JSONL records (losses, rewards, metrics), baseline "
+            f"{float(b['baseline']):.6f}, every parameter of both phases; "
+            f"RL reward means {[r['reward_mean'] for r in rl_rec]}")
+    return b["launches"]
+
+
+def phase_convert(torch, device: str) -> None:
+    """The CLI's convert on 6 PNGs (480x640 and 300x200, the port's
+    writer) on the device: every output decodes as 256x256 RGB and is
+    within 1 level of the port's CPU converter on the same files."""
+    import shutil
+
+    from image_compression_torch.io import pypng
+    from image_compression_torch.io.converter import convert_dataset
+    from image_compression_torch.io.image_io import load_image
+
+    with phase("convert"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        src = tmp / "card"
+        src.mkdir()
+        shapes = [(480, 640)] * 3 + [(300, 200)] * 3
+        for i, (h, w) in enumerate(shapes):
+            img = make_images(1, h, w, seed=60 + i)[0]
+            (src / f"img{i}.png").write_bytes(pypng.encode(img))
+        shutil.copytree(src, tmp / "cpu")
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "image_compression_torch.cli.main",
+             "convert", "--dataset-dir", str(src), "--source-format", "png",
+             "--device", device], cwd=REPO, capture_output=True, text=True,
+            timeout=600, env={**__import__("os").environ,
+                              "PYTHONPATH": str(REPO)})
+        dt = time.perf_counter() - t0
+        if out.returncode != 0 or "converted 6 images" not in out.stdout:
+            raise AssertionError(f"convert: {out.stdout}{out.stderr}")
+        convert_dataset(tmp / "cpu", "png", device="cpu")
+        worst, share = 0, 0.0
+        for i in range(len(shapes)):
+            got = load_image(src / f"img{i}.png").astype(int)
+            want = load_image(tmp / "cpu" / f"img{i}.png").astype(int)
+            if got.shape != (256, 256, 3) or want.shape != got.shape:
+                raise AssertionError(f"convert: shape {got.shape}")
+            diff = np.abs(got - want)
+            worst = max(worst, int(diff.max()))
+            share = max(share, float((diff > 0).mean()))
+        if worst > 1:
+            raise AssertionError(f"convert on {device}: {worst} levels off "
+                                 "the CPU converter")
+        log(f"  6 PNGs (3 x 480x640, 3 x 300x200) -> 256x256 by the CLI on "
+            f"{device} in {dt:.3f} s (with the interpreter's start); "
+            f"outputs decode; within {worst} level of the CPU converter, "
+            f"at most {share:.4f} of entries differ")
+
+
+def phase_trace(torch, device: str, base: int, side: int) -> None:
+    """One 8-image learned-cost compress batch inside device_trace: the
+    trace names the leaf kernel (on the card), and PhaseTimer's summary
+    is printed with the device's busy share of the traced batch."""
+    from image_compression_torch import pipeline
+    from image_compression_torch.config import Config
+    from image_compression_torch.models.unet import EdgeUNet, init_random_
+    from image_compression_torch.utils.profiling import (PhaseTimer,
+                                                         annotate,
+                                                         device_trace)
+
+    with phase("trace"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        model = init_random_(EdgeUNet(base=base), seed=0).to(device).eval()
+        with torch.no_grad():
+            model.outc.bias[0::2] = 1.0
+        images = make_images(8, side, side, seed=1)
+        names = [f"img{j}" for j in range(8)]
+        cfg = Config()
+
+        def cost_fn(b):
+            return pipeline.learned_costs(model, b)
+
+        timer = PhaseTimer()
+        with timer.phase("warm-up batch"):
+            pipeline.compress_arrays(images, cost_fn, cfg, tmp / "warm",
+                                     names, device=device)
+        with device_trace(tmp / "trace") as handle:
+            with timer.phase("traced batch"), annotate("compress_batch"):
+                pipeline.compress_arrays(images, cost_fn, cfg, tmp / "out",
+                                         names, device=device)
+        with timer.phase("trace export"):
+            events = json.loads(handle.path.read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        leaf = [e for e in kernels if "leaf_kernel" in e.get("name", "")]
+        if device == "cuda" and not leaf:
+            raise AssertionError("the trace names no leaf_kernel")
+        if not any(e.get("name") == "compress_batch" for e in events):
+            raise AssertionError("the trace lacks the annotated range")
+        busy = ""
+        if kernels:
+            spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+            total, end = 0.0, -1.0
+            for t0, t1 in spans:  # union of the kernels' intervals
+                total += max(0.0, t1 - max(t0, end))
+                end = max(end, t1)
+            ranged = [e for e in events if e.get("name") == "compress_batch"]
+            wall = max(e["dur"] for e in ranged)
+            busy = (f"; {len(kernels)} kernels, device busy {total / 1e3:.3f}"
+                    f" ms of the {wall / 1e3:.3f} ms batch "
+                    f"({total / wall:.4f})")
+        log(f"  trace {handle.path.name}: {len(events)} events, "
+            f"leaf_kernel events {len(leaf)}" + busy)
+        timer.log(lambda line: log("  " + line))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -1131,11 +1547,20 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         phase_photo(torch)
     train_launches = phase_training(torch, args.device, args.small)
+    spatial_launches, spatial_err = phase_spatial(torch, args.device,
+                                                  args.small)
+    dp_launches = phase_data_parallel(torch, args.device, args.small)
+    phase_convert(torch, args.device)
+    phase_trace(torch, args.device, base, side)
 
     if args.device == "cuda":
         kernels[0]["launches"] = launches[0]
+        kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
+                                        spatial_err)
         kernels[0]["launches_by_path"] = {"compress": launches[0],
-                                          "training": train_launches}
+                                          "training": train_launches,
+                                          "spatial": spatial_launches,
+                                          "data_parallel": dp_launches}
         log(json.dumps({"kernels": kernels}))
         log(gpu_name_and_limit())
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,8 +28,12 @@ Layer map:
   models/    -- EdgeUNet, ValueNet, the flax-params and train-state
                 converters
   train/     -- losses, metrics, policy, optimizers and steps, checkpoints,
-                data, the pretraining and REINFORCE loops
-  utils/     -- synthetic pattern generators (numpy)
+                data, the pretraining and REINFORCE loops (data parallel
+                inside a process group; what each rank does: ranks)
+  parallel/  -- meshes of devices and the data-parallel process group
+                (mesh), height-sharded solve and extractors (spatial)
+  utils/     -- synthetic pattern generators, random partitions (numpy),
+                profiling (torch.profiler traces, phase timer)
   pipeline   -- compress driver
   cli/       -- `python -m image_compression_torch.cli.main`
 """

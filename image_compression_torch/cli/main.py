@@ -7,12 +7,17 @@
               (--classical slic|canny|graph|watershed, canny by default);
               --pack writes one SLPK file per image
   reassemble  rebuild one image from its slice directory or pack file
+  convert     resize every --source-format image of --dataset-dir to
+              --size x --size and write it as a PNG beside the source
   pretrain    supervised pretraining on classical targets (--epochs,
               --resume a full-state checkpoint, --init-params a params file)
   train       REINFORCE from pretrained params (--checkpoint, a params file
               or a full-state checkpoint; --epochs, --resume)
 
-Runs on CUDA unless --device cpu is given.
+Runs on CUDA unless --device cpu is given. pretrain and train join a
+data-parallel process group first when a cluster environment is set, so
+that under `torchrun --nproc_per_node=N` they train on N cards (NCCL;
+gloo with --device cpu).
 """
 
 from __future__ import annotations
@@ -75,6 +80,34 @@ def cmd_reassemble(args):
         sys.exit(1)
 
 
+def cmd_convert(args):
+    from image_compression_torch.io.converter import convert_dataset
+
+    n = convert_dataset(args.dataset_dir or "dataset",
+                        source_format=args.source_format, width=args.size,
+                        height=args.size, device=args.device)
+    print(f"converted {n} images")
+
+
+def _training(run):
+    """Run a training command inside the data-parallel group, when a
+    cluster environment asks for one; rank 0 prints its result."""
+    from image_compression_torch.parallel import mesh
+
+    def cmd(args):
+        joined = mesh.initialize_distributed(device=args.device)
+        try:
+            msg = run(args)
+            if mesh.world()[0] == 0:
+                print(msg)
+        finally:
+            if joined:
+                import torch.distributed as dist
+                dist.destroy_process_group()
+    return cmd
+
+
+@_training
 def cmd_pretrain(args):
     from image_compression_torch.train.pretrain import run_pretraining
 
@@ -84,9 +117,10 @@ def cmd_pretrain(args):
     _state, run_id = run_pretraining(cfg, resume=args.resume,
                                      init_params=args.init_params,
                                      device=args.device)
-    print(f"pretraining done, run id {run_id}")
+    return f"pretraining done, run id {run_id}"
 
 
+@_training
 def cmd_train(args):
     from image_compression_torch.train.checkpoint import load_params
     from image_compression_torch.train.reinforce import run_reinforce
@@ -96,7 +130,7 @@ def cmd_train(args):
         cfg.rl.epochs = args.epochs
     _state, run_id = run_reinforce(cfg, load_params(args.checkpoint),
                                    resume=args.resume, device=args.device)
-    print(f"training done, run id {run_id}")
+    return f"training done, run id {run_id}"
 
 
 def main(argv=None):
@@ -123,6 +157,13 @@ def main(argv=None):
     p.add_argument("slice_dir")
     p.add_argument("-o", "--output", default="reconstructed.png")
     p.set_defaults(fn=cmd_reassemble)
+
+    p = sub.add_parser("convert", help="dataset preparation: resize and "
+                       "re-encode as PNG")
+    _add_config_args(p)
+    p.add_argument("--source-format", default="jpeg")
+    p.add_argument("--size", type=int, default=256)
+    p.set_defaults(fn=cmd_convert)
 
     p = sub.add_parser("pretrain", help="supervised pretraining")
     _add_config_args(p)

@@ -368,17 +368,54 @@ def leaf_applies(sides: Sequence[int], caps: Sequence[int],
             and int(caps[0]) == 64 and int(caps[1]) <= LEAF_MAX_S1)
 
 
+def _minpix_from_pixels(rank_img: torch.Tensor, s: int,
+                        slots: int) -> torch.Tensor:
+    """Smallest pixel id per slot [B * T, S] from pixel state at supertile
+    side s (the resume's rebuild; dead slots carry the sentinel H*W)."""
+    b, height, width = rank_img.shape
+    return _slot_min(_to_tiles(rank_img, s),
+                     _to_tiles(_pixel_ids(b, height, width, rank_img.device),
+                               s), slots, height * width)
+
+
+def _resume_state(init_state, b: int):
+    """The five pixel-state fields of a resume, in the loop's layout: ranks,
+    frozen and final_gid [B, H, W], ncand [B * T], overflow [B]."""
+    rank_img, ncand, frozen, final_gid, overflow = init_state[:5]
+    overflow = torch.as_tensor(overflow, dtype=torch.int32,
+                               device=rank_img.device).expand(b)
+    return (rank_img.to(torch.int64), ncand.reshape(-1).to(torch.int64),
+            frozen.to(torch.bool), final_gid.to(torch.int32), overflow)
+
+
 def _hier_gaec_matrix(costs, sides, caps, rounds_per_level, mode: str,
-                      leaf: str) -> HierResult:
+                      leaf: str, start_level: int = 0,
+                      init_state: tuple | None = None) -> HierResult:
     b, height, width, _ = costs.shape
     sentinel = height * width
     dev = costs.device
-    if leaf == "fused" and not leaf_applies(sides, caps, mode):
-        raise ValueError("leaf='fused' needs mode='chain', base 8, "
-                         f"caps[0]=64, caps[1]<={LEAF_MAX_S1} and >=2 "
-                         f"levels; got sides={sides} caps={list(caps)[:2]} "
-                         f"mode={mode}")
-    if leaf in ("auto", "fused") and leaf_applies(sides, caps, mode):
+    fused_ok = init_state is None and leaf_applies(sides, caps, mode)
+    if leaf == "fused" and not fused_ok:
+        raise ValueError("leaf='fused' needs a fresh start, mode='chain', "
+                         f"base 8, caps[0]=64, caps[1]<={LEAF_MAX_S1} and "
+                         f">=2 levels; got sides={sides} "
+                         f"caps={list(caps)[:2]} mode={mode}")
+    if init_state is not None:
+        rank_img, ncand, frozen, final_gid, overflow = _resume_state(
+            init_state, b)
+        if len(init_state) == 7:
+            # the slot-space handoff: the carried pair matrices and min-pixel
+            # ids continue as they are, with no pixel-space rebuild
+            slots = int(caps[start_level - 1])
+            sym = init_state[5].reshape(-1, slots, slots).to(torch.float32)
+            m = init_state[6].reshape(-1, slots).to(torch.int32)
+        else:
+            prev = start_level - 1
+            sym = _pair_from_pixels(rank_img, costs, sides[prev],
+                                    int(caps[prev]))
+            m = _minpix_from_pixels(rank_img, sides[prev], int(caps[prev]))
+        first = start_level
+    elif leaf in ("auto", "fused") and fused_ok:
         from image_compression_torch.ops.multicut_leaf import (
             leaf_levels_fused)
         (rank_img, ncand, frozen, final_gid, overflow, sym,
@@ -460,17 +497,24 @@ def _dense_rounds(rank_img: torch.Tensor, w_e: torch.Tensor, s: int,
     return _apply_slot_map(rank_img, new_rank, s), new_rank[:, -1] + 1
 
 
-def _hier_gaec_pixel(costs, sides, caps, rounds_per_level,
-                     mode: str) -> HierResult:
+def _hier_gaec_pixel(costs, sides, caps, rounds_per_level, mode: str,
+                     start_level: int = 0,
+                     init_state: tuple | None = None) -> HierResult:
     b, height, width, _ = costs.shape
     n = height * width
     dev = costs.device
     pix = _pixel_ids(b, height, width, dev)
-    overflow = torch.zeros(b, dtype=torch.int32, device=dev)
-    frozen = torch.zeros((b, height, width), dtype=torch.bool, device=dev)
-    final_gid = torch.zeros((b, height, width), dtype=torch.int32, device=dev)
-    ncand = None
-    for i, s in enumerate(sides):
+    if init_state is not None:
+        rank_img, ncand, frozen, final_gid, overflow = _resume_state(
+            init_state, b)
+    else:
+        overflow = torch.zeros(b, dtype=torch.int32, device=dev)
+        frozen = torch.zeros((b, height, width), dtype=torch.bool,
+                             device=dev)
+        final_gid = torch.zeros((b, height, width), dtype=torch.int32,
+                                device=dev)
+        ncand = None
+    for i, s in list(enumerate(sides))[start_level:]:
         slots = int(caps[i])
         if i == 0:
             ys = torch.arange(height, device=dev)[:, None]
@@ -541,9 +585,21 @@ def lean_caps(sides: Sequence[int], kind: str = "half") -> list[int]:
 def hier_gaec(costs_bhw2: torch.Tensor, mode: str = "chain", base: int = 8,
               rounds_per_level: Sequence[int] | None = None,
               caps: Sequence[int] | None = None, agg: str = "matrix",
-              leaf: str = "auto") -> HierResult:
+              leaf: str = "auto", start_level: int = 0,
+              init_state: tuple | None = None) -> HierResult:
     """Run the hierarchy over all divisible levels of a batch of cost planes
     [B, H, W, 2].
+
+    start_level / init_state resume the hierarchy part way (the spatially
+    sharded solve, parallel/spatial.py: strips run the levels that fit their
+    height, then the gathered state continues here). init_state holds the
+    state after level start_level - 1, as a HierResult lays it out:
+    (rank_img [B, H, W], ncand [B, T], frozen, final_gid [B, H, W],
+    overflow [B]); sides, caps and rounds are the whole image's plan. With
+    agg="matrix" a 7-tuple (..., pair [B, T, S, S], minpix [B, T, S]) hands
+    over the slot-space state as it is, and the resumed run is bit-identical
+    to an unsharded one; the 5-tuple rebuilds pair and minpix from the pixel
+    state. A resumed run never takes the leaf kernel.
 
     mode: "chain", "random_mate" or "mutual". agg: "matrix" (the port's
     default; the reference function's is "pixel") or "pixel". leaf (matrix
@@ -562,6 +618,17 @@ def hier_gaec(costs_bhw2: torch.Tensor, mode: str = "chain", base: int = 8,
         raise ValueError(f"unknown agg: {agg}")
     if leaf not in ("auto", "fused", "xla", "unfused"):
         raise ValueError(f"unknown leaf: {leaf}")
+    if (start_level > 0) != (init_state is not None):
+        raise ValueError("start_level and init_state go together")
+    if init_state is not None:
+        if not 0 < start_level <= len(sides):
+            raise ValueError(f"start_level {start_level} outside the "
+                             f"{len(sides)} levels of {height}x{width}")
+        if len(init_state) not in (5, 7) or (len(init_state) == 7
+                                             and agg != "matrix"):
+            raise ValueError("init_state is a 5-tuple, or a 7-tuple with "
+                             f"agg='matrix'; got {len(init_state)} fields "
+                             f"with agg={agg!r}")
     if caps is None:
         caps = default_caps(sides)
     if int(caps[0]) < sides[0] * sides[0]:
@@ -577,8 +644,10 @@ def hier_gaec(costs_bhw2: torch.Tensor, mode: str = "chain", base: int = 8,
                             * (len(sides) - len(rounds_per_level)))
     costs = costs_bhw2.to(torch.float32)
     if agg == "pixel":
-        return _hier_gaec_pixel(costs, sides, caps, rounds_per_level, mode)
-    return _hier_gaec_matrix(costs, sides, caps, rounds_per_level, mode, leaf)
+        return _hier_gaec_pixel(costs, sides, caps, rounds_per_level, mode,
+                                start_level, init_state)
+    return _hier_gaec_matrix(costs, sides, caps, rounds_per_level, mode, leaf,
+                             start_level, init_state)
 
 
 def globalize(res: HierResult, height: int, width: int) -> torch.Tensor:

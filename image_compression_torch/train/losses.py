@@ -40,7 +40,11 @@ def _bce_with_logits(logits, labels):
 def pretrain_loss(outputs: torch.Tensor, targets: torch.Tensor,
                   pos_weight: float = 0.1, w_sign: float = 1.0,
                   w_sigma: float = 0.01, sigma_min: float = 0.1,
-                  sigma_max: float = 0.9) -> PretrainLossOut:
+                  sigma_max: float = 0.9, reduce=None) -> PretrainLossOut:
+    """The loss of one batch. With `reduce` (a function summing a tensor
+    over the data-parallel ranks) the normalizers are the global batch's,
+    so each rank's loss is its share of the global loss: the shares sum to
+    it, and so do their gradients."""
     logit_r, sigma_r_z, logit_d, sigma_d_z = outputs.unbind(-1)
     y_r, y_d, mask_r, mask_d = targets.unbind(-1)
 
@@ -51,6 +55,9 @@ def pretrain_loss(outputs: torch.Tensor, targets: torch.Tensor,
     w_d = (1.0 - y_d) + y_d * pos_weight
     num = (bce_r * w_r * mask_r).sum() + (bce_d * w_d * mask_d).sum()
     den = (w_r * mask_r).sum() + (w_d * mask_d).sum()
+    sum_r, sum_d = mask_r.sum(), mask_d.sum()
+    if reduce is not None:  # targets only: no gradient flows through them
+        den, sum_r, sum_d = reduce(torch.stack([den, sum_r, sum_d])).unbind()
     loss_sign = num / den.clamp(min=1.0)
 
     p_r = (1.0 / (1.0 + torch.exp(-logit_r))).clamp(1e-7, 1 - 1e-7)
@@ -67,7 +74,7 @@ def pretrain_loss(outputs: torch.Tensor, targets: torch.Tensor,
     nll_r = 0.5 * (err2_r / sigma_r ** 2 + torch.log(sigma_r ** 2))
     nll_d = 0.5 * (err2_d / sigma_d ** 2 + torch.log(sigma_d ** 2))
 
-    valid_w = mask_r.sum().clamp(min=1.0) + mask_d.sum().clamp(min=1.0)
+    valid_w = sum_r.clamp(min=1.0) + sum_d.clamp(min=1.0)
     loss_sigma = ((nll_r * mask_r).sum() + (nll_d * mask_d).sum()) / valid_w
 
     loss = w_sign * loss_sign + w_sigma * loss_sigma

@@ -35,11 +35,27 @@ def _std0(x: torch.Tensor) -> torch.Tensor:
     return torch.std(x, correction=0)
 
 
+def policy_noise(key: tuple[int, int], mu: torch.Tensor,
+                 rows: slice | None = None,
+                 global_batch: int | None = None) -> torch.Tensor:
+    """eps = normal(key, [B, E]) for mu [B, E]; with `rows`, the draw is the
+    global batch's [global_batch, E] and this keeps rows `rows` (the slice
+    of one data-parallel rank)."""
+    if rows is None:
+        return prng.normal(key, mu.shape, mu.device).to(mu.dtype)
+    return prng.normal(key, (global_batch, mu.shape[1]),
+                       mu.device)[rows].to(mu.dtype)
+
+
 def sample_gaussian_policy(key: tuple[int, int], mu: torch.Tensor,
-                           sigma: torch.Tensor) -> PolicySample:
+                           sigma: torch.Tensor,
+                           noise: torch.Tensor | None = None
+                           ) -> PolicySample:
     """mu, sigma [B, E] -> reparameterized sample w = mu + sigma * eps,
-    eps = normal(key, [B, E]), with summed log-prob and entropy."""
-    noise = prng.normal(key, mu.shape, mu.device).to(mu.dtype)
+    eps = normal(key, [B, E]) (or `noise`), with summed log-prob and
+    entropy."""
+    if noise is None:
+        noise = policy_noise(key, mu)
     return gaussian_logp(mu + sigma * noise, mu, sigma)
 
 
@@ -59,10 +75,13 @@ def gaussian_logp(w: torch.Tensor, mu: torch.Tensor,
 
 
 def sample_antithetic_policy(key: tuple[int, int], mu: torch.Tensor,
-                             sigma: torch.Tensor) -> PolicySample:
-    """Mirrored pairs from one noise draw eps: w+ = mu + sigma * eps and
-    w- = mu - sigma * eps stacked on the batch axis -> [2B, E]."""
-    noise = prng.normal(key, mu.shape, mu.device).to(mu.dtype)
+                             sigma: torch.Tensor,
+                             noise: torch.Tensor | None = None
+                             ) -> PolicySample:
+    """Mirrored pairs from one noise draw eps (or `noise`): w+ = mu + sigma
+    * eps and w- = mu - sigma * eps stacked on the batch axis -> [2B, E]."""
+    if noise is None:
+        noise = policy_noise(key, mu)
     w = torch.cat([mu + sigma * noise, mu - sigma * noise], dim=0)
     return gaussian_logp(w, torch.cat([mu, mu], dim=0),
                          torch.cat([sigma, sigma], dim=0))

@@ -8,6 +8,13 @@ cut), resume from a full-state checkpoint, warm start from a params file,
 and a checkpoint on SIGTERM/SIGINT. The classical targets are computed on
 the device once per image and extractor, cached as packed bits in RAM and
 on disk (TargetDiskCache, the reference's file names and format).
+
+Data parallel (use_mesh, inside a torch.distributed process group: see
+parallel/): every rank reads each global batch and trains on its slice
+(the step reduces over the ranks), validation shards a batch when it
+divides by the world size, the parameters are broadcast from rank 0 at the
+start and after a resume, and only rank 0 writes checkpoints, the JSONL
+log and the log lines.
 """
 
 from __future__ import annotations
@@ -27,10 +34,11 @@ from image_compression_torch.io.image_io import find_image_files_recursively
 from image_compression_torch.models.unet import EdgeUNet
 from image_compression_torch.ops.edges import edge_validity_masks
 from image_compression_torch.ops.targets import create_target_with_mask
+from image_compression_torch.parallel import mesh as pmesh
 from image_compression_torch.train.checkpoint import (CheckpointManager,
                                                       load_params)
 from image_compression_torch.train.data import ImageBatches
-from image_compression_torch.train.metrics import MetricsLogger
+from image_compression_torch.train.ranks import RankSetup
 from image_compression_torch.train.steps import (init_train_state,
                                                  make_pretrain_eval,
                                                  make_pretrain_step)
@@ -92,12 +100,27 @@ class _Interrupt:
         for sig, handler in self._prev.items():
             signal.signal(sig, handler)
 
+    def any_rank(self, dp: bool, device: torch.device) -> bool:
+        """The flag of any rank (every rank then stops after the same
+        batch); the local flag without data parallelism."""
+        if not dp:
+            return self.flag
+        flag = torch.tensor([float(self.flag)], device=device)
+        pmesh.all_reduce_sum_([flag])
+        return bool(flag.item() > 0)
+
 
 def run_pretraining(cfg: Config, log=print, resume: str | None = None,
                     init_params: str | None = None,
                     device: str | torch.device = "cuda",
-                    model: EdgeUNet | None = None) -> tuple:
+                    model: EdgeUNet | None = None,
+                    use_mesh: bool = True) -> tuple:
     """Returns (final TrainState, run_id).
+
+    use_mesh: inside a process group (parallel/mesh.initialize_distributed),
+    train data parallel over its ranks (False there raises);
+    cfg.pretrain.batch_size is the global batch and must divide by the
+    world size.
 
     model: the EdgeUNet to train (default: base 64, bf16), given seeded
     random weights (models/unet.init_random_, seed 0).
@@ -108,7 +131,9 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
     batch and return.
     """
     p = cfg.pretrain
-    device = resolve_device(device)
+    ranks = RankSetup(use_mesh, device, p.batch_size, cfg.results_dir,
+                      "fcn_pretrained", log)
+    device, log = ranks.device, ranks.log
     state = init_train_state(model if model is not None else EdgeUNet(),
                              cfg, 0, device)
 
@@ -143,7 +168,9 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
         start_epoch = 1 + state.step // steps_per_epoch
         log(f"resumed from {resume} at step {state.step} "
             f"(epoch {start_epoch})")
-    step_fn = make_pretrain_step(cfg)
+    if ranks.dp:
+        pmesh.broadcast_module_(state.model)
+    step_fn = make_pretrain_step(cfg, data_parallel=ranks.dp)
     eval_fn = make_pretrain_eval(cfg)
 
     # cycled extractor schedule (cfg.pretrain.target_ensemble): batch t
@@ -197,7 +224,6 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
         return to_device(np.concatenate(
             [costs, np.broadcast_to(masks_np[None], costs.shape)], axis=-1))
 
-    ckpt = CheckpointManager(cfg.results_dir, "fcn_pretrained")
     best_val_loss = float("inf")
 
     def run_validation():
@@ -205,10 +231,12 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
         correct = valid = 0
         agg = None
         for i, images in enumerate(val_data.epoch(0, shuffle=False)):
-            images = to_device(images)
+            rows = ranks.shard(len(images))
+            images = to_device(images if rows is None else images[rows])
             if i not in val_targets:
                 val_targets[i] = targets_fn(images)
-            stats, m = eval_fn(state.model, images, val_targets[i])
+            stats, m = eval_fn(state.model, images, val_targets[i],
+                               sharded=rows is not None)
             w = float(stats["valid_weight"])
             loss_num += float(stats["loss"]) * w
             loss_den += w
@@ -219,7 +247,7 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
         acc = correct / max(valid, 1)
         return val_loss, acc, (agg.summary() if agg is not None else {})
 
-    metrics_log = MetricsLogger(cfg.results_dir, ckpt.run_id)
+    metrics_log = ranks.metrics(cfg.results_dir)
     interrupt = _Interrupt()
     try:
         for epoch in range(start_epoch, p.epochs + 1):
@@ -227,15 +255,16 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
             t0 = time.time()
             for batch_count, (images, indices) in enumerate(
                     train_data.epoch(epoch), 1):
-                images = to_device(images)
+                images = to_device(images[ranks.rows])
+                indices = indices[ranks.rows]
                 ext = ensemble[(epoch * 7919 + batch_count) % len(ensemble)]
                 targets = train_targets(indices, images, ext)
                 _, aux, train_m = step_fn(state, images, targets)
                 epoch_losses.append(aux["loss"])
-                if interrupt.flag:
-                    path = ckpt.save("interrupt", state)
+                if interrupt.any_rank(ranks.dp, device):
+                    path = ranks.save("interrupt", state)
                     log(f"interrupted: checkpointed to {path}")
-                    return state, ckpt.run_id
+                    return state, ranks.ckpt.run_id
 
                 if batch_count % p.val_every == 0 or batch_count == 1:
                     val_loss, val_acc, val_sum = run_validation()
@@ -263,7 +292,7 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
                         f"{val_sum.get('f1_cut', 0):.3f}")
                     if val_loss < best_val_loss:
                         best_val_loss = val_loss
-                        ckpt.save("best", state)
+                        ranks.save("best", state)
 
             avg_loss = (float(torch.stack(epoch_losses).mean())
                         if epoch_losses else 0.0)
@@ -272,10 +301,10 @@ def run_pretraining(cfg: Config, log=print, resume: str | None = None,
                                "seconds": time.time() - t0})
             log(f"Epoch [{epoch}/{p.epochs}] avg loss {avg_loss:.4f} "
                 f"({time.time() - t0:.1f}s)")
-            ckpt.save(f"epoch_{epoch}", state)
+            ranks.save(f"epoch_{epoch}", state)
 
-        ckpt.save("final", state)
-        return state, ckpt.run_id
+        ranks.save("final", state)
+        return state, ranks.ckpt.run_id
     finally:
         interrupt.restore()
         metrics_log.close()

@@ -16,6 +16,17 @@ and are updated in place. The optimizers are optax's, operation for
 operation (OptaxAdam): AdamW(lr, wd) over every parameter (norms and
 biases included) for pretraining; clip_by_global_norm followed by Adam for
 RL; Adam for the value net.
+
+Data parallelism (parallel/mesh.py): inside a torch.distributed process
+group each rank runs these steps on its slice of the global batch. The
+pretrain loss takes the global batch's normalizers, so the ranks' losses
+are shares of the global loss and their gradients are summed; the RL step
+draws the global batch's noise and keeps its rows, gathers the rewards
+(and value predictions) in the global batch's order to compute the
+baseline, the advantages and the reward mean exactly as one process would,
+and averages the gradients. Every reduction happens before the optimizer's
+clip. Without a process group none of this runs and the steps are those of
+one process.
 """
 
 from __future__ import annotations
@@ -35,12 +46,14 @@ from image_compression_torch.ops.edges import (flatten_edge_planes,
 from image_compression_torch.ops.multicut import (multicut_grid,
                                                   produces_minlabel)
 from image_compression_torch.ops.rewards import compute_rewards_batched
+from image_compression_torch.parallel import mesh as pmesh
 from image_compression_torch.train.losses import pretrain_loss
-from image_compression_torch.train.metrics import edge_metrics
+from image_compression_torch.train.metrics import EdgeMetrics, edge_metrics
 from image_compression_torch.train.policy import (antithetic_advantage,
                                                   ema_baseline_update,
                                                   gaussian_logp,
                                                   gaussian_logp_elem,
+                                                  policy_noise,
                                                   ppo_clip_loss,
                                                   reinforce_loss,
                                                   sample_antithetic_policy,
@@ -192,42 +205,87 @@ def make_rl_optimizer(cfg: Config, params) -> OptaxAdam:
     return OptaxAdam(params, cfg.rl.lr, max_norm=cfg.rl.grad_clip)
 
 
-def _pretrain_loss(out, targets, cfg: Config):
+def _data_parallel(flag: bool) -> bool:
+    """`flag`, checked: a step reduces over the ranks only inside a process
+    group."""
+    if flag and not pmesh.distributed():
+        raise ValueError("data_parallel=True needs a process group "
+                         "(parallel/mesh.initialize_distributed)")
+    return flag
+
+
+def _rank_sum(x: torch.Tensor) -> torch.Tensor:
+    x = x.detach().clone()
+    pmesh.all_reduce_sum_([x])
+    return x
+
+
+def _grads(module: torch.nn.Module) -> list:
+    return [p.grad for p in module.parameters() if p.grad is not None]
+
+
+def _pretrain_loss(out, targets, cfg: Config, reduce=None):
     p = cfg.pretrain
     return pretrain_loss(out, targets, pos_weight=p.pos_weight,
                          w_sign=p.w_sign, w_sigma=p.w_sigma,
-                         sigma_min=p.sigma_min, sigma_max=p.sigma_max)
+                         sigma_min=p.sigma_min, sigma_max=p.sigma_max,
+                         reduce=reduce)
 
 
-def make_pretrain_step(cfg: Config):
+def _global_stats(stats: dict, metrics: EdgeMetrics, keys):
+    """Sum `keys` of stats (loss shares and counts) and every metric count
+    over the ranks."""
+    stats = {k: (_rank_sum(v) if k in keys else v) for k, v in stats.items()}
+    return stats, EdgeMetrics(*[_rank_sum(c) for c in metrics])
+
+
+def make_pretrain_step(cfg: Config, data_parallel: bool = False):
     """step(state, images [B, H, W, 3], targets [B, H, W, 4]) ->
-    (state, aux, EdgeMetrics); aux holds device scalars."""
+    (state, aux, EdgeMetrics); aux holds device scalars. With
+    data_parallel (inside a process group) the batch is this rank's slice,
+    the gradients are summed over the ranks before the optimizer, and aux
+    and the metrics are the global batch's."""
+    dp = _data_parallel(data_parallel)
 
     def step(state: TrainState, images: torch.Tensor,
              targets: torch.Tensor):
         state.optimizer.zero_grad(set_to_none=True)
         out = state.model(images)
-        lo = _pretrain_loss(out, targets, cfg)
+        lo = _pretrain_loss(out, targets, cfg, _rank_sum if dp else None)
         lo.loss.backward()
+        if dp:
+            pmesh.all_reduce_sum_(_grads(state.model))
         state.optimizer.step()
         state.step += 1
         aux = {"loss": lo.loss.detach(), "loss_sign": lo.loss_sign.detach(),
                "loss_sigma": lo.loss_sigma.detach(),
                "sign_correct": lo.correct, "sign_valid": lo.valid}
-        return state, aux, edge_metrics(out.detach(), targets)
+        metrics = edge_metrics(out.detach(), targets)
+        if dp:
+            return (state, *_global_stats(aux, metrics, aux.keys()))
+        return state, aux, metrics
 
     return step
 
 
 def make_pretrain_eval(cfg: Config):
+    """evaluate(model, images, targets, sharded=False) -> (stats,
+    EdgeMetrics). sharded: the batch is this rank's slice of a global batch
+    and the results are the global batch's."""
+
     @torch.no_grad()
     def evaluate(model: EdgeUNet, images: torch.Tensor,
-                 targets: torch.Tensor):
+                 targets: torch.Tensor, sharded: bool = False):
         out = model(images)
-        lo = _pretrain_loss(out, targets, cfg)
-        return {"loss": lo.loss, "valid_weight": lo.valid_weight,
-                "sign_correct": lo.correct,
-                "sign_valid": lo.valid}, edge_metrics(out, targets)
+        lo = _pretrain_loss(out, targets, cfg,
+                            _rank_sum if sharded else None)
+        stats = {"loss": lo.loss, "valid_weight": lo.valid_weight,
+                 "sign_correct": lo.correct, "sign_valid": lo.valid}
+        metrics = edge_metrics(out, targets)
+        if sharded:
+            return _global_stats(stats, metrics,
+                                 ("loss", "sign_correct", "sign_valid"))
+        return stats, metrics
 
     return evaluate
 
@@ -315,9 +373,14 @@ class RLStep:
     cfg.rl.sampler "antithetic" solves mirrored pairs (2B solves) with the
     pair-difference advantage; baseline "value" subtracts the value net's
     prediction (trained in the same step) instead of the EMA;
-    cfg.rl.ppo_epochs = K > 0 replaces the update by K clipped steps."""
+    cfg.rl.ppo_epochs = K > 0 replaces the update by K clipped steps.
 
-    def __init__(self, cfg: Config):
+    With data_parallel (inside a process group) the images are
+    this rank's slice of the global batch: the noise is the global draw's
+    rows, mirrored pairs stay on their rank, and the baseline, advantages,
+    reward mean and gradients are the global batch's."""
+
+    def __init__(self, cfg: Config, data_parallel: bool = False):
         r = cfg.rl
         if r.sampler not in ("single", "antithetic"):
             raise ValueError(f"unknown rl.sampler: {r.sampler}")
@@ -326,6 +389,24 @@ class RLStep:
         self.cfg = cfg
         self.antithetic = r.sampler == "antithetic"
         self.use_value = r.baseline == "value"
+        self.dp = _data_parallel(data_parallel)
+
+    def _gather(self, x: torch.Tensor, pairs: int) -> torch.Tensor:
+        """A per-sample vector of this rank ([pairs * n]: the w+ rows, then
+        the w- rows) -> the global batch's, in one process's order."""
+        if not self.dp:
+            return x
+        size = pmesh.world()[1]
+        return (pmesh.all_gather_rows(x).reshape(size, pairs, -1)
+                .transpose(0, 1).reshape(-1))
+
+    def _local(self, x: torch.Tensor, pairs: int) -> torch.Tensor:
+        """The inverse of _gather: this rank's entries of a global
+        vector."""
+        if not self.dp:
+            return x
+        rank, size = pmesh.world()
+        return x.reshape(pairs, size, -1)[:, rank].reshape(-1)
 
     @torch.no_grad()
     def forward(self, state: RLState, images: torch.Tensor):
@@ -338,39 +419,49 @@ class RLStep:
         """-> (w [B', E], rewards [B']): the sample keyed by
         fold_in(key, step_idx), solved and rewarded on its own image."""
         key = prng.fold_in(key, step_idx)
+        noise = None
+        if self.dp:
+            global_batch = mu.shape[0] * pmesh.world()[1]
+            noise = policy_noise(key, mu, pmesh.rank_slice(global_batch),
+                                 global_batch)
         if self.antithetic:
-            w = sample_antithetic_policy(key, mu, sigma).w
+            w = sample_antithetic_policy(key, mu, sigma, noise).w
             images = torch.cat([images, images], dim=0)
             image_sizes = torch.cat([image_sizes, image_sizes], dim=0)
         else:
-            w = sample_gaussian_policy(key, mu, sigma).w
+            w = sample_gaussian_policy(key, mu, sigma, noise).w
         return w, solve_and_reward(w, images, image_sizes, self.cfg)[1]
 
     def update(self, state: RLState, w: torch.Tensor, images: torch.Tensor,
                rewards: torch.Tensor, mu_old: torch.Tensor,
                sigma_old: torch.Tensor):
         r = self.cfg.rl
+        pairs = 2 if self.antithetic else 1
+        rewards_g = self._gather(rewards, pairs)
         # the EMA tracks the mean reward in every mode
         baseline, binit = ema_baseline_update(
-            state.baseline, state.baseline_init, rewards,
+            state.baseline, state.baseline_init, rewards_g,
             r.baseline_momentum)
         vloss = torch.zeros((), device=rewards.device)
         if self.antithetic:
-            adv = antithetic_advantage(rewards)
+            adv = antithetic_advantage(rewards_g)
         elif self.use_value:
             state.value_optimizer.zero_grad(set_to_none=True)
             v = state.value_model(images)
             vloss = torch.mean((v - rewards) ** 2)
             vloss.backward()
+            if self.dp:
+                pmesh.all_reduce_mean_(_grads(state.value_model))
             state.value_optimizer.step()
             # the advantage takes the prediction before the update, and
             # the policy does not shape V
-            v = v.detach()
-            adv = (whitened_advantage(rewards, v) if r.whiten
-                   else rewards - v)
+            v = self._gather(v.detach(), 1)
+            adv = (whitened_advantage(rewards_g, v) if r.whiten
+                   else rewards_g - v)
         else:
-            adv = (whitened_advantage(rewards, baseline) if r.whiten
-                   else rewards - baseline)
+            adv = (whitened_advantage(rewards_g, baseline) if r.whiten
+                   else rewards_g - baseline)
+        adv = self._local(adv, pairs)
 
         model, opt = state.model, state.optimizer
         if r.ppo_epochs > 0:
@@ -383,16 +474,23 @@ class RLStep:
                 loss = rl_ppo_loss(model, images, w, adv, logp_old_elem,
                                    self.cfg)
                 loss.backward()
+                if self.dp:
+                    pmesh.all_reduce_mean_(_grads(model))
                 opt.step()
         else:
             opt.zero_grad(set_to_none=True)
             loss = rl_loss(model, images, w, adv, self.cfg)
             loss.backward()
+            if self.dp:
+                pmesh.all_reduce_mean_(_grads(model))
             opt.step()
         state.step += 1
         state.baseline, state.baseline_init = baseline, binit
-        aux = {"loss": loss.detach(), "reward_mean": rewards.mean(),
-               "baseline": baseline, "value_loss": vloss.detach()}
+        loss, vloss = loss.detach().clone(), vloss.detach().clone()
+        if self.dp:
+            pmesh.all_reduce_mean_([loss, vloss])
+        aux = {"loss": loss, "reward_mean": rewards_g.mean(),
+               "baseline": baseline, "value_loss": vloss}
         return state, aux
 
     def __call__(self, state: RLState, key: tuple[int, int],
@@ -423,8 +521,8 @@ class RLStep:
         return out
 
 
-def make_rl_step(cfg: Config) -> RLStep:
-    return RLStep(cfg)
+def make_rl_step(cfg: Config, data_parallel: bool = False) -> RLStep:
+    return RLStep(cfg, data_parallel)
 
 
 def make_rl_eval(cfg: Config):

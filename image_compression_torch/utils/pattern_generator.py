@@ -6,8 +6,8 @@ order, so the same generator state gives the same pixels bit for bit.
 The single-statistics classes (GENERATORS: tile repetition, monochrome,
 low-variance noise, low-frequency noise, row copies, uniform noise), the
 mixed-compressibility composites with their ground-truth partitions
-(MOSAIC_GENERATORS) and the random connected partition. The photo
-composites of the reference need photographs and are not here.
+(MOSAIC_GENERATORS), the photo composites (crops of photographs the
+caller passes as arrays) and the random connected partition.
 """
 
 from __future__ import annotations
@@ -259,6 +259,55 @@ def generate_lz_period(width: int, height: int, rng: np.random.Generator,
                         0, 255).astype(np.uint8)
         img[:, x0:x1] = np.tile(block, (height // p + 1, 1, 1))[:height]
         lab[:, x0:x1] = s
+    return img, lab
+
+
+def generate_photo_mosaic(width: int, height: int, photos: list,
+                          rng: np.random.Generator, cell: int = 128
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """Mosaic whose cells are crops of photographs (arrays [h, w, >=3]
+    u8): each cell takes a random crop of a different randomly drawn
+    photo, so distinct real regions interleave. Returns (image [H,W,3] u8,
+    labels [H,W] int64, one label per cell). As in the reference, a photo
+    smaller than a cell raises (its crop does not fill the cell)."""
+    img = np.zeros((height, width, 3), np.uint8)
+    lab = np.zeros((height, width), np.int64)
+    k = 0
+    order = rng.permutation(len(photos))
+    for y in range(0, height, cell):
+        for x in range(0, width, cell):
+            src = photos[order[k % len(photos)]]
+            ch = min(cell, height - y)
+            cw = min(cell, width - x)
+            sy = int(rng.integers(0, max(src.shape[0] - ch, 0) + 1))
+            sx = int(rng.integers(0, max(src.shape[1] - cw, 0) + 1))
+            img[y:y + ch, x:x + cw] = src[sy:sy + ch, sx:sx + cw, :3]
+            lab[y:y + ch, x:x + cw] = k
+            k += 1
+    return img, lab
+
+
+def generate_photo_collage(width: int, height: int, photos: list,
+                           rng: np.random.Generator, n_panels: int = 3
+                           ) -> tuple[np.ndarray, np.ndarray]:
+    """Photo rectangles pasted on a flat background (a document-style
+    compound image); panel sides are clamped to their photo's. Returns
+    (image [H,W,3] u8, labels [H,W] int64: 0 background, i + 1 panel
+    i)."""
+    img = np.full((height, width, 3), int(rng.integers(200, 245)), np.uint8)
+    lab = np.zeros((height, width), np.int64)
+    order = rng.permutation(len(photos))
+    for i in range(n_panels):
+        src = photos[order[i % len(photos)]]
+        ph = int(rng.integers(height // 4, height // 2))
+        pw = int(rng.integers(width // 4, width // 2))
+        ph, pw = min(ph, src.shape[0]), min(pw, src.shape[1])
+        y0 = int(rng.integers(0, height - ph + 1))
+        x0 = int(rng.integers(0, width - pw + 1))
+        sy = int(rng.integers(0, src.shape[0] - ph + 1))
+        sx = int(rng.integers(0, src.shape[1] - pw + 1))
+        img[y0:y0 + ph, x0:x0 + pw] = src[sy:sy + ph, sx:sx + pw, :3]
+        lab[y0:y0 + ph, x0:x0 + pw] = i + 1
     return img, lab
 
 

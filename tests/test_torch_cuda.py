@@ -229,3 +229,22 @@ def test_rl_solve_and_reward_on_card_equal_cpu(cuda):
                                           sizes.to(cuda), cfg)
     assert torch.equal(lab_g.cpu(), lab_c)
     assert torch.allclose(rew_g.cpu(), rew_c, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("agg", ["matrix", "pixel"])
+def test_spatial_solve_on_card_equals_unsharded(cuda, agg):
+    """The spatially sharded solve over four strips on one card
+    (Mesh([cuda:0] * 4)) gives the unsharded solve's labels bit for bit;
+    with matrix aggregation the strips launch the leaf kernel, with pixel
+    aggregation nothing does."""
+    from image_compression_torch.parallel.mesh import make_mesh
+    from image_compression_torch.parallel.spatial import (
+        multicut_grid_spatial)
+    rng = np.random.default_rng(12)
+    costs = torch.as_tensor(rng.normal(0.3, 1.0, (256, 256, 2)).astype(
+        np.float32), device=cuda)
+    want = multicut_grid(costs[None], icm_sweeps=0, hier_agg=agg)[0]
+    n0 = leaf.launches
+    got = multicut_grid_spatial(costs, make_mesh([cuda] * 4), agg=agg)
+    assert (leaf.launches > n0) == (agg == "matrix")
+    assert torch.equal(got, want)
