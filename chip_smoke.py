@@ -91,15 +91,31 @@ Phases, each printing one line with its own seconds:
      the outputs decode and are within 1 level of the CPU converter's;
  13. trace: one 8 x 256x256 learned-cost compress batch inside
      utils/profiling.device_trace; the exported trace names leaf_kernel;
-     printed: the device's busy share of the batch and PhaseTimer's JSON.
+     printed: the device's busy share of the batch and PhaseTimer's JSON;
+ 14. flagship: the repo's trained U-Net (image_compression_torch/weights/
+     fcn_pretrained_r4_mixed.pt, its sha256 the record's) compresses the
+     first 32 images of the mixed corpus (256x256, made by the port's
+     generators, zlib level 6) through compress_directory in bf16 and f32:
+     lossless, never above an original plus a one-slice record, and the
+     f32 run keeps every fallback decision of the JAX package's record
+     (weights/flagship_mixed_reference.json), writes the record's bytes
+     for all but 1 in F32_UNEQUAL_PER images, and its out/orig is within
+     F32_OUT_ORIG_TOL; on one batch's flagship costs the card's labels
+     equal the CPU's and the leaf kernel its plain version; REINFORCE
+     from the weights through the CLI's train (2 steps and an
+     evaluation); one batch traced. Printed: out/orig beside the record's,
+     decisions, slices per image, images/s, stage seconds, leaf launches,
+     steps/s, the eval reward beside phase 9's, the busy share beside
+     phase 13's.
 Then one JSON line describing each kernel (its leaf launches of the main
 compress path under "launches", and per path under "launches_by_path":
-compress, run_reinforce, the sharded solves and the data-parallel run),
+compress, run_reinforce, the sharded solves, the data-parallel run and
+the flagship's bf16 compress),
 the card's name and power limit, and as the last line {"ok": true,
 "device": {...}}. Any failure exits non-zero before that line. Without a
 GPU (and without --device cpu) the script exits non-zero at once.
 
---device cpu --small runs phases 0, 3, 4, 6, 7 and 9-13 on the CPU at
+--device cpu --small runs phases 0, 3, 4, 6, 7 and 9-14 on the CPU at
 64x64 (and one 48x80 image; phase 7 on 8 + 4 images of 64x64 and 64x96 in
 batches of 4; phases 9 and 11 with a base-8 U-Net on 32x32 images in
 batches of 2, phase 11 in a world of one over gloo; phase 10 at 128x128
@@ -107,13 +123,16 @@ over 8 CPU strips with both aggregations and sharded canny at 64x64; the
 tiny cases as they are) with a base-8 U-Net, through the plain versions of
 the kernels, on 2 torch threads (the CPU's float sums depend on the thread
 count); phase 6 then compares the CPU with itself, and there is no
-3648x5472 field and no photo.
+3648x5472 field and no photo. Phase 14 on the CPU runs f32 only (4 images
+of 128x128 with --small, with the real base-64 weights) and trains at
+32x32.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import pathlib
 import platform
@@ -841,30 +860,47 @@ def write_training_corpus(root: pathlib.Path, n_train: int, n_val: int,
     n_train images train, the next n_val validate. PNGs by the port's
     encoder."""
     from image_compression_torch.io import pypng
-    from image_compression_torch.utils import pattern_generator as pg
+    from image_compression_torch.utils.pattern_generator import mixed_corpus
 
-    makers = {
-        "sigma": lambda rng, c: pg.generate_sigma_mosaic(size, size, rng,
-                                                         cell=c),
-        "anticorr": lambda rng, c: pg.generate_anticorr_mosaic(
-            size, size, rng, cell=c),
-        "mixedmos": lambda rng, c: pg.generate_mixed_mosaic(size, size, rng,
-                                                            cell=c),
-        "flatnoise": lambda rng, c: pg.generate_flat_noise_composite(
-            size, size, rng),
-    }
-    # cells 64 and 128 at 256x256, scaled with smaller sides
-    cycle, cells = list(makers), (size // 4, size // 2)
-    rng = np.random.default_rng(0)
     dirs = root / "train", root / "val"
     for d in dirs:
         d.mkdir(parents=True)
-    for i in range(n_train + n_val):
-        tag = cycle[i % len(cycle)]
-        img, _ = makers[tag](rng, cells[(i // len(cycle)) % len(cells)])
+    # cells 64 and 128 at 256x256, scaled with smaller sides
+    for i, (stem, img) in enumerate(mixed_corpus(
+            n_train + n_val, size, cells=(size // 4, size // 2))):
         d = dirs[0] if i < n_train else dirs[1]
-        (d / f"{tag}_{i:04d}.png").write_bytes(pypng.encode(img))
+        (d / f"{stem}.png").write_bytes(pypng.encode(img))
     return dirs
+
+
+def check_rl_solve(torch, cfg, rl_step, rl_state, key, imgs_d,
+                   sizes_d) -> None:
+    """The RL solve and reward of one step's sampled costs, rounded to 1/16
+    (exact in every sum, so the order of the sums cannot matter): on the
+    card, labels equal the CPU's and rewards are within 1e-5; the rewards
+    are printed."""
+    from image_compression_torch.train import steps
+
+    with torch.no_grad():
+        mu, sigma = rl_step.forward(rl_state, imgs_d)
+        w, _ = rl_step.solve_reward(key, rl_state.step, mu, sigma, imgs_d,
+                                    sizes_d)
+        q = torch.round(w * 16) / 16
+        imgs2 = torch.cat([imgs_d, imgs_d])
+        sizes2 = torch.cat([sizes_d, sizes_d])
+        lab, rew = steps.solve_and_reward(q, imgs2, sizes2, cfg)
+        if imgs_d.is_cuda:
+            lab_c, rew_c = steps.solve_and_reward(q.cpu(), imgs2.cpu(),
+                                                  sizes2.cpu(), cfg)
+            err = float((rew.cpu() - rew_c).abs().max())
+            if not torch.equal(lab.cpu(), lab_c) or not torch.allclose(
+                    rew.cpu(), rew_c, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"RL solve/reward differ from the "
+                                     f"CPU's (max reward diff {err})")
+            log(f"  RL solve and reward of {len(q)} samples rounded to "
+                f"1/16: labels equal the CPU's, rewards within {err:.2e}")
+        log(f"  rewards (fallback-aware) of those samples: "
+            f"{[round(float(r), 5) for r in rew]}")
 
 
 def phase_training(torch, device: str, small: bool) -> dict:
@@ -883,7 +919,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
     rewards within 1e-5); a SIGINT during the run leaves an interrupt
     checkpoint that resumes at its step; the run's best_params compress
     and reassemble losslessly through the CLI. Returns the leaf launches of
-    the run_reinforce run."""
+    the run_reinforce run and its evaluation's log line."""
     import signal
 
     from image_compression_torch.cli.main import main as cli
@@ -1007,28 +1043,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
             + ", ".join(f"{k} {v / n_timed:.4f}" for k, v in timings.items())
             + f"; leaf launches per step {per_step}")
 
-        # the RL solve and reward on the card equal the CPU's (sampled costs
-        # rounded to 1/16: exact in every sum, so the order cannot matter)
-        with torch.no_grad():
-            mu, sigma = rl_step.forward(rl_state, imgs_d)
-            w, _ = rl_step.solve_reward(key, rl_state.step, mu, sigma,
-                                        imgs_d, sizes_d)
-            q = torch.round(w * 16) / 16
-            imgs2 = torch.cat([imgs_d, imgs_d])
-            sizes2 = torch.cat([sizes_d, sizes_d])
-            lab, rew = steps.solve_and_reward(q, imgs2, sizes2, cfg)
-            if cuda:
-                lab_c, rew_c = steps.solve_and_reward(q.cpu(), imgs2.cpu(),
-                                                      sizes2.cpu(), cfg)
-                err = float((rew.cpu() - rew_c).abs().max())
-                if not torch.equal(lab.cpu(), lab_c) or not torch.allclose(
-                        rew.cpu(), rew_c, rtol=1e-5, atol=1e-6):
-                    raise AssertionError(f"RL solve/reward differ from the "
-                                         f"CPU's (max reward diff {err})")
-                log(f"  RL solve and reward of {len(q)} samples rounded to "
-                    f"1/16: labels equal the CPU's, rewards within {err:.2e}")
-            log(f"  rewards (fallback-aware) of those samples: "
-                f"{[round(float(r), 5) for r in rew]}")
+        check_rl_solve(torch, cfg, rl_step, rl_state, key, imgs_d, sizes_d)
         del rl_state
 
         # run_reinforce; a SIGINT after the first evaluation leaves
@@ -1065,6 +1080,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
         log(f"  run_reinforce, 1 epoch interrupted after step {rl.step}: "
             f"{dt:.3f} s; baseline {baseline:.5f}; params changed; "
             f"{evals[0]}; leaf launches {launches}")
+        eval_msg = evals[0]
         del rl
 
         cfg.rl.epochs = 2
@@ -1095,7 +1111,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
         if cuda:
             log(f"  peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
                 "GiB allocated")
-    return launches
+    return launches, eval_msg
 
 
 def smooth_costs(size: int, seed: int) -> np.ndarray:
@@ -1432,10 +1448,39 @@ def phase_convert(torch, device: str) -> None:
             f"at most {share:.4f} of entries differ")
 
 
-def phase_trace(torch, device: str, base: int, side: int) -> None:
+def trace_busy(events: list[dict], device: str) -> dict:
+    """Kernel events of a device_trace around one "compress_batch" range:
+    the trace must name leaf_kernel (on the card); returns the kernel
+    count, the device's busy ms (union of the kernels' intervals), the
+    range's wall ms and a printable summary."""
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    leaf = [e for e in kernels if "leaf_kernel" in e.get("name", "")]
+    if device == "cuda" and not leaf:
+        raise AssertionError("the trace names no leaf_kernel")
+    ranged = [e for e in events if e.get("name") == "compress_batch"]
+    if not ranged:
+        raise AssertionError("the trace lacks the annotated range")
+    out = {"kernels": len(kernels), "busy_ms": None, "wall_ms": None,
+           "text": f", leaf_kernel events {len(leaf)}"}
+    if kernels:
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+        total, end = 0.0, -1.0
+        for t0, t1 in spans:  # union of the kernels' intervals
+            total += max(0.0, t1 - max(t0, end))
+            end = max(end, t1)
+        wall = max(e["dur"] for e in ranged)
+        out.update(busy_ms=total / 1e3, wall_ms=wall / 1e3)
+        out["text"] += (f"; {len(kernels)} kernels, device busy "
+                        f"{total / 1e3:.3f} ms of the {wall / 1e3:.3f} ms "
+                        f"batch ({total / wall:.4f})")
+    return out
+
+
+def phase_trace(torch, device: str, base: int, side: int) -> dict:
     """One 8-image learned-cost compress batch inside device_trace: the
     trace names the leaf kernel (on the card), and PhaseTimer's summary
-    is printed with the device's busy share of the traced batch."""
+    is printed with the device's busy share of the traced batch (returned
+    as trace_busy gives it)."""
     from image_compression_torch import pipeline
     from image_compression_torch.config import Config
     from image_compression_torch.models.unet import EdgeUNet, init_random_
@@ -1465,27 +1510,275 @@ def phase_trace(torch, device: str, base: int, side: int) -> None:
                                          names, device=device)
         with timer.phase("trace export"):
             events = json.loads(handle.path.read_text())["traceEvents"]
-        kernels = [e for e in events if e.get("cat") == "kernel"]
-        leaf = [e for e in kernels if "leaf_kernel" in e.get("name", "")]
-        if device == "cuda" and not leaf:
-            raise AssertionError("the trace names no leaf_kernel")
-        if not any(e.get("name") == "compress_batch" for e in events):
-            raise AssertionError("the trace lacks the annotated range")
-        busy = ""
-        if kernels:
-            spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-            total, end = 0.0, -1.0
-            for t0, t1 in spans:  # union of the kernels' intervals
-                total += max(0.0, t1 - max(t0, end))
-                end = max(end, t1)
-            ranged = [e for e in events if e.get("name") == "compress_batch"]
-            wall = max(e["dur"] for e in ranged)
-            busy = (f"; {len(kernels)} kernels, device busy {total / 1e3:.3f}"
-                    f" ms of the {wall / 1e3:.3f} ms batch "
-                    f"({total / wall:.4f})")
-        log(f"  trace {handle.path.name}: {len(events)} events, "
-            f"leaf_kernel events {len(leaf)}" + busy)
+        busy = trace_busy(events, device)
+        log(f"  trace {handle.path.name}: {len(events)} events{busy['text']}")
         timer.log(lambda line: log("  " + line))
+    return busy
+
+WEIGHTS = REPO / "image_compression_torch" / "weights"
+FLAGSHIP = WEIGHTS / "fcn_pretrained_r4_mixed.pt"
+FLAGSHIP_RECORD = WEIGHTS / "flagship_mixed_reference.json"
+# the f32 run against the JAX package's record: every image keeps the
+# record's fallback decision, all but n // F32_UNEQUAL_PER images (1 in
+# 16: 2 of 32, 0 of 4) write files byte-equal to the record's, and the
+# total out/orig stays within F32_OUT_ORIG_TOL of the record's. The port's
+# f32 run met every image's bytes, on the CPU and on an H100; the slack is
+# for a near-tie merge between regions, which the U-Net's last bits decide
+# and which cuDNN, oneDNN and XLA sum in their own orders (1.92e-5 x max
+# apart on the CPU, tests/test_torch_weights.py). 0.0005 lets those images'
+# slicings move by ~1.4 KB in total
+F32_UNEQUAL_PER = 16
+F32_OUT_ORIG_TOL = 0.0005
+
+
+def flagship_outputs(data: pathlib.Path, out: pathlib.Path) -> list[dict]:
+    """io/reassemble.output_record of every source PNG (sorted): the
+    record's entries. Every output must reassemble to its source and be at
+    most the source plus a one-slice metadata record (the never-expand
+    guarantee)."""
+    from image_compression_torch.io.image_io import ensure_rgba, load_image
+    from image_compression_torch.io.metadata import (SliceMetadata,
+                                                     encode_metadata)
+    from image_compression_torch.io.reassemble import (output_record,
+                                                       reassemble_array)
+
+    entries = []
+    for src in sorted(data.glob("*.png")):
+        img = load_image(src)
+        h, w = img.shape[:2]
+        record = len(encode_metadata(
+            [SliceMetadata(0, "slice_0.png", 0, 0, w, h)], w, h))
+        entry = output_record(src, out / src.stem)
+        if not np.array_equal(reassemble_array(out / src.stem),
+                              ensure_rgba(img)):
+            raise AssertionError(f"flagship {src.stem}: not lossless")
+        if entry["out_bytes"] > src.stat().st_size + record:
+            raise AssertionError(f"flagship {src.stem}: {entry['out_bytes']}"
+                                 f" bytes out of {src.stat().st_size} + "
+                                 f"{record}")
+        entries.append(entry)
+    return entries
+
+
+def phase_flagship(torch, device: str, small: bool,
+                   random_eval: str | None,
+                   random_busy: dict | None) -> tuple[int, float]:
+    """The repo's trained flagship (fcn_pretrained_r4_mixed, the weights
+    file) through the main path's entry points, held against the JAX
+    package's own output (the record): compress_directory at the shipped
+    settings on the first 32 images of the mixed corpus at 256x256 (4 of
+    128x128 with --small), made here by the port's generators and written
+    at zlib level 6, in bf16 (the shipped dtype, on the card only) and in
+    f32. Every output is lossless and never expands; the f32 run keeps the
+    record's fallback decision on every image, writes the record's bytes
+    for all but 1 in F32_UNEQUAL_PER images, and its total out/orig is
+    within F32_OUT_ORIG_TOL of the record's. On one batch's
+    flagship costs the card's labels equal the CPU's (costs rounded to
+    1/16) and the leaf kernel equals its plain version bitwise (unrounded
+    costs). Then `train --checkpoint <weights>` through the CLI at the r4
+    RL settings (16 + 8 images of 256x256, batch 8; on the CPU 4 + 2 of
+    32x32, batch 2: 2 steps and an evaluation) gives finite rewards,
+    launches the leaf kernel at every solve and changes the params, and
+    its sampled costs' solve and reward equal the CPU's; and one batch is
+    traced. Returns the bf16 compress run's leaf launches (the f32 run's
+    on the CPU) and the leaf's largest absolute difference from its plain
+    version."""
+    from image_compression_torch import pipeline
+    from image_compression_torch.cli.main import main as cli
+    from image_compression_torch.config import Config
+    from image_compression_torch.io.image_io import load_image, write_image
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.ops import multicut_leaf as ml
+    from image_compression_torch.ops import prng
+    from image_compression_torch.train import steps
+    from image_compression_torch.train.checkpoint import load_params
+    from image_compression_torch.train.data import ImageBatches
+    from image_compression_torch.utils.pattern_generator import mixed_corpus
+    from image_compression_torch.utils.profiling import annotate, device_trace
+
+    cuda = device == "cuda"
+    key = "small" if small else "full"
+    record = json.loads(FLAGSHIP_RECORD.read_text())
+    ref = record["runs"][key]
+    n, size, batch = ref["n"], ref["size"], 8
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    with phase("flagship"), tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        digest = hashlib.sha256(FLAGSHIP.read_bytes()).hexdigest()
+        if digest != record["weights_sha256"]:
+            raise AssertionError(f"{FLAGSHIP.name}: sha256 {digest}, the "
+                                 f"record's {record['weights_sha256']}")
+        params = load_params(FLAGSHIP)
+        log(f"  weights {FLAGSHIP.relative_to(REPO)}: sha256 {digest} (the "
+            f"record's); {sum(v.numel() for v in params.values())} f32 "
+            f"parameters, base {params['inc.conv0.weight'].shape[0]}")
+        data = tmp / "data"
+        data.mkdir()
+        for stem, img in mixed_corpus(n, size):
+            write_image(data / f"{stem}.png", img, 6)
+        paths = sorted(data.glob("*.png"))
+        orig = {p.stem: p.stat().st_size for p in paths}
+        log(f"  corpus: the mixed corpus' first {n} images at {size}x{size} "
+            f"(seed 0, cells 64/128), zlib level 6: {sum(orig.values())} "
+            f"bytes; each original's bytes equal the record's: "
+            f"{orig == ref['orig_bytes']}")
+
+        models = {}
+        for name, dtype in ((("bf16", torch.bfloat16),
+                             ("f32", torch.float32)) if cuda else
+                            (("f32", torch.float32),)):
+            model = EdgeUNet(base=64, dtype=dtype)
+            model.load_state_dict(params)
+            models[name] = model = model.to(device).eval()
+            cfg = Config(dataset_dir=str(data),
+                         results_dir=str(tmp / name))
+            if cuda:  # warm-up batch
+                warm = tmp / "warm"
+                warm.mkdir(exist_ok=True)
+                for p in paths[:batch]:
+                    (warm / p.name).write_bytes(p.read_bytes())
+                pipeline.compress_directory(
+                    Config(dataset_dir=str(warm),
+                           results_dir=str(tmp / f"warm_{name}")),
+                    model, device=device)
+            timings: dict = {}
+            ml.launches = 0
+            t0 = time.perf_counter()
+            pipeline.compress_directory(cfg, model, batch_size=batch,
+                                        device=device, timings=timings)
+            elapsed = time.perf_counter() - t0
+            launches = ml.launches
+            if name == "bf16" or not cuda:
+                flagship_launches = launches
+            if cuda and launches < -(-n // batch):
+                raise AssertionError(f"flagship {name}: {launches} leaf "
+                                     f"launches for {n} images")
+            got = flagship_outputs(data, tmp / name)
+            want = ref[name]
+            ratio = sum(e["out_bytes"] for e in got) / sum(orig.values())
+            slices = [e["slices"] for e in got]
+            same = sum(a["fallback"] == b["fallback"]
+                       for a, b in zip(got, want["images"]))
+            equal = sum(a["sha256"] == b["sha256"]
+                        for a, b in zip(got, want["images"]))
+            log(f"  {name}: {n} images lossless, none above its original "
+                f"plus a one-slice record; {n / elapsed:.3f} images/s "
+                f"({elapsed:.3f} s); out/orig {ratio:.6f}, the JAX "
+                f"package's {want['out_orig']:.6f} (difference "
+                f"{ratio - want['out_orig']:+.6f}); fallback decisions as "
+                f"the record's on {same} of {n}; output bytes equal the "
+                f"JAX package's on {equal} of {n}; slices per image {slices}; "
+                f"single-slice share {slices.count(1) / n:.4f}; leaf "
+                f"launches {launches}")
+            log(f"  {name} stage seconds: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in timings.items())
+                + " (write runs in a worker thread)")
+            if name == "f32" and (
+                    same < n or equal < n - n // F32_UNEQUAL_PER
+                    or abs(ratio - want["out_orig"]) > F32_OUT_ORIG_TOL):
+                raise AssertionError(
+                    f"flagship f32: {same} of {n} decisions and {equal} of "
+                    f"{n} images' bytes as the record's (at least "
+                    f"{n - n // F32_UNEQUAL_PER}), out/orig {ratio} vs "
+                    f"{want['out_orig']} (within {F32_OUT_ORIG_TOL})")
+        if "pixel_bf16" in ref:
+            log(f"  the JAX package's shipped hier_agg 'pixel' (bf16), for "
+                f"context: out/orig {ref['pixel_bf16']['out_orig']:.6f}")
+
+        # one batch's flagship costs: the solver against the CPU, the leaf
+        # kernel against its plain version
+        model = models["bf16" if cuda else "f32"]
+        images = [load_image(p) for p in paths[:batch]]
+        with torch.inference_mode():
+            x = torch.as_tensor(np.stack(images) / 255.0,
+                                dtype=torch.float32, device=device)
+            costs = pipeline.learned_costs(model, x)
+        check_solver_on_batch(torch, make_solve(pipeline, Config().multicut),
+                              costs, device)
+        max_err = 0.0
+        if cuda:
+            max_err, _ = _leaf_equal(torch, ml, "flagship costs",
+                                     costs.cpu().numpy(), 64)
+            args = (*ml.leaf_inputs(costs), 64, 2, 1, size * size)
+            k_ms = cuda_ms(torch, lambda: ml.leaf_cuda(*args))
+            p_ms = cuda_ms(torch, lambda: ml.leaf_plain(*args), iters=5)
+            b_ms, b_by = leaf_bound(args[0].shape[0], 64, 2, 1)
+            log(f"  leaf on the flagship's costs (T1={args[0].shape[0]}, "
+                f"s1=64): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by})")
+
+        # REINFORCE from the flagship through the CLI, r4 RL settings
+        rl_size, rl_batch = (256, 8) if cuda else (32, 2)
+        train_dir, val_dir = write_training_corpus(tmp / "rl_data",
+                                                   2 * rl_batch, rl_batch,
+                                                   rl_size)
+        cfg = Config(dataset_dir=str(train_dir), val_dataset_dir=str(val_dir),
+                     results_dir=str(tmp / "rl"), cache_dir=str(tmp / "c"),
+                     image_size=rl_size)
+        cfg.rl.sampler, cfg.rl.baseline, cfg.rl.ppo_epochs = ("antithetic",
+                                                              "ema", 0)
+        cfg.rl.whiten, cfg.rl.lr, cfg.rl.entropy_coef = False, 2e-5, 1e-5
+        cfg.rl.epochs, cfg.rl.batch_size = 1, rl_batch
+        cfg.reward.fallback_aware = True
+        cfg_path = tmp / "r4_rl.json"
+        cfg_path.write_text(json.dumps(cfg.to_dict()))
+        ml.launches = 0
+        t0 = time.perf_counter()
+        cli(["train", "--config", str(cfg_path), "--checkpoint",
+             str(FLAGSHIP), "--device", device])
+        sync()
+        dt = time.perf_counter() - t0
+        rl_launches = ml.launches
+        records = _jsonl(tmp / "rl")
+        (final,) = (tmp / "rl").glob("fcn_training_*_final")
+        trained = load_params(final)
+        changed = any(not torch.equal(trained[k], v)
+                      for k, v in params.items())
+        rewards = [r[k] for r in records
+                   for k in ("reward_mean", "eval_reward_mean")]
+        if (len(records) != 1 or records[0]["step"] != 2 or not changed
+                or not all(np.isfinite(rewards))):
+            raise AssertionError(f"train from the flagship: records "
+                                 f"{records}, params changed {changed}")
+        if cuda and rl_launches < 3:  # 2 steps + 1 evaluation batch
+            raise AssertionError(f"train from the flagship: {rl_launches} "
+                                 f"leaf launches in 2 steps + 1 evaluation")
+        log(f"  train --checkpoint {FLAGSHIP.name} (r4 RL settings, "
+            f"{2 * rl_batch} + {rl_batch} images {rl_size}x{rl_size}, batch "
+            f"{rl_batch}): 2 steps and an evaluation in {dt:.3f} s "
+            f"({2 / dt:.3f} steps/s with the evaluation and checkpoints); "
+            f"reward mean {records[0]['reward_mean']:.6f}, eval reward "
+            f"{records[0]['eval_reward_mean']:.6f} (phase 9 from pretrained "
+            f"random weights: {random_eval or 'not run'}); params changed; "
+            f"leaf launches {rl_launches}")
+        rl_state = steps.init_rl_state(EdgeUNet(base=64).to(device), cfg)
+        rl_state.model.load_state_dict(params)
+        imgs, sizes = next(ImageBatches(sorted(train_dir.glob("*.png")),
+                                        rl_batch, rl_size,
+                                        with_file_sizes=True).epoch(0))
+        check_rl_solve(torch, cfg, steps.make_rl_step(cfg), rl_state,
+                       prng.prng_key(0), torch.as_tensor(imgs).to(device),
+                       torch.as_tensor(sizes).to(device))
+        del rl_state
+
+        # one batch traced (bf16 on the card)
+        with device_trace(tmp / "trace") as handle:
+            with annotate("compress_batch"):
+                pipeline.compress_arrays(
+                    images, lambda b: pipeline.learned_costs(model, b),
+                    Config(), tmp / "traced", [p.stem for p in
+                                               paths[:batch]],
+                    device=device)
+        busy = trace_busy(json.loads(handle.path.read_text())["traceEvents"],
+                          device)
+        log(f"  trace of one flagship batch{busy['text']}; phase 13 "
+            f"(random weights): " + (random_busy["text"].lstrip(", ")
+                                     if random_busy else "not run"))
+    return flagship_launches, max_err
 
 
 def main(argv=None) -> int:
@@ -1537,6 +1830,7 @@ def main(argv=None) -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         phase_build()
+    if args.device == "cuda":
         kernels.append(phase_leaf(torch, batch, side))
     launches = phase_main(torch, args.device, runs, base)
     phase_solver_configs(torch, args.device)
@@ -1546,21 +1840,25 @@ def main(argv=None) -> int:
     phase_classical(torch, args.device, side, 4 if args.small else batch)
     if args.device == "cuda":
         phase_photo(torch)
-    train_launches = phase_training(torch, args.device, args.small)
+    train_launches, train_eval = phase_training(torch, args.device,
+                                                args.small)
     spatial_launches, spatial_err = phase_spatial(torch, args.device,
                                                   args.small)
     dp_launches = phase_data_parallel(torch, args.device, args.small)
     phase_convert(torch, args.device)
-    phase_trace(torch, args.device, base, side)
+    busy = phase_trace(torch, args.device, base, side)
+    flagship_launches, flagship_err = phase_flagship(
+        torch, args.device, args.small, train_eval, busy)
 
     if args.device == "cuda":
         kernels[0]["launches"] = launches[0]
         kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"],
-                                        spatial_err)
+                                        spatial_err, flagship_err)
         kernels[0]["launches_by_path"] = {"compress": launches[0],
                                           "training": train_launches,
                                           "spatial": spatial_launches,
-                                          "data_parallel": dp_launches}
+                                          "data_parallel": dp_launches,
+                                          "flagship": flagship_launches}
         log(json.dumps({"kernels": kernels}))
         log(gpu_name_and_limit())
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

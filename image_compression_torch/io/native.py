@@ -48,6 +48,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _U8P, _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.pngio_write_slices_conn.restype = ctypes.c_int
+    lib.pngio_labels_from_conn.argtypes = [
+        _U8P, _U8P, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.pngio_labels_from_conn.restype = ctypes.c_int
     return lib
 
 
@@ -161,6 +165,33 @@ def write_slices_native(image_rgba_u8: np.ndarray, labels_hw: np.ndarray,
     return rc
 
 
+def _conn_planes(hbits: np.ndarray, vbits: np.ndarray, height: int,
+                 width: int) -> tuple[np.ndarray, np.ndarray]:
+    stride = -(-width // 8)
+    hb = np.ascontiguousarray(hbits, np.uint8)
+    vb = np.ascontiguousarray(vbits, np.uint8)
+    if hb.shape != (height, stride) or vb.shape != (height, stride):
+        raise ValueError(f"planes {hb.shape} {vb.shape}: expected "
+                         f"({height}, {stride})")
+    return hb, vb
+
+
+def labels_from_conn_native(hbits: np.ndarray, vbits: np.ndarray,
+                            height: int, width: int) -> np.ndarray:
+    """Labels int32 [H, W] from packed connectivity planes by the native
+    union-find: each region's smallest flat pixel index, as the solver's
+    labels and ops/labels_wire.labels_from_connectivity give them."""
+    lib = _require()
+    hb, vb = _conn_planes(hbits, vbits, height, width)
+    out = np.empty((height, width), np.int32)
+    rc = lib.pngio_labels_from_conn(
+        hb.ctypes.data_as(_U8P), vb.ctypes.data_as(_U8P), height, width,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        raise RuntimeError("pngio_labels_from_conn failed")
+    return out
+
+
 def write_slices_conn_native(image_rgba_u8: np.ndarray, hbits: np.ndarray,
                              vbits: np.ndarray, out_path: str | pathlib.Path,
                              level: int = 4, n_threads: int = 0,
@@ -170,13 +201,9 @@ def write_slices_conn_native(image_rgba_u8: np.ndarray, hbits: np.ndarray,
     lib = _require()
     img = np.ascontiguousarray(image_rgba_u8, np.uint8)
     h, w = img.shape[:2]
-    stride = -(-w // 8)
-    hb = np.ascontiguousarray(hbits, np.uint8)
-    vb = np.ascontiguousarray(vbits, np.uint8)
-    if img.shape != (h, w, 4) or hb.shape != (h, stride) or \
-            vb.shape != (h, stride):
-        raise ValueError(f"image {img.shape}, planes {hb.shape} "
-                         f"{vb.shape}: expected ({h}, {stride}) planes")
+    if img.shape != (h, w, 4):
+        raise ValueError(f"image {img.shape}: expected RGBA")
+    hb, vb = _conn_planes(hbits, vbits, h, w)
     rc = lib.pngio_write_slices_conn(
         img.ctypes.data_as(_U8P), hb.ctypes.data_as(_U8P),
         vb.ctypes.data_as(_U8P), h, w, str(out_path).encode(), level,

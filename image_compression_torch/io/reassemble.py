@@ -8,6 +8,7 @@ io/slicer.py; port of the reference's io/reassemble.py.
 
 from __future__ import annotations
 
+import hashlib
 import pathlib
 import sys
 
@@ -82,3 +83,23 @@ def reassemble(slice_dir: str | pathlib.Path,
         print(f"Error reassembling: {e}", file=sys.stderr)
         return False
     return write_image(out_filename, canvas, compression_level)
+
+
+def output_record(src: str | pathlib.Path,
+                  slice_dir: str | pathlib.Path) -> dict:
+    """What compress wrote for one source image into its slice directory:
+    the stem, the output's bytes (slices + metadata.bin), the slice count,
+    whether it fell back (one slice whose bytes are the source's) and the
+    sha256 of every output file's name and bytes, in name order."""
+    src, slice_dir = pathlib.Path(src), pathlib.Path(slice_dir)
+    files = {p.name: p.read_bytes() for p in sorted(slice_dir.iterdir())}
+    slices = [k for k in files if k.startswith("slice_")]
+    digest = hashlib.sha256()
+    for name, blob in files.items():
+        digest.update(name.encode() + blob)
+    return {"name": src.stem,
+            "out_bytes": sum(len(v) for v in files.values()),
+            "slices": len(slices),
+            "fallback": len(slices) == 1
+            and files[slices[0]] == src.read_bytes(),
+            "sha256": digest.hexdigest()}

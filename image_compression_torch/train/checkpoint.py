@@ -65,9 +65,18 @@ def save_params(path: str | pathlib.Path, params) -> None:
     _atomic_save(params, pathlib.Path(path).absolute())
 
 
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
+
+
 def load_params(path: str | pathlib.Path) -> dict[str, torch.Tensor]:
     """The state_dict of a params file, or the params of a full-state
-    checkpoint, on the CPU."""
-    d = torch.load(pathlib.Path(path).absolute(), map_location="cpu",
-                   weights_only=True)
+    checkpoint, on the CPU. An orbax checkpoint directory of the JAX
+    package raises ValueError naming the command that converts it."""
+    path = pathlib.Path(path).absolute()
+    if path.is_dir() and any((path / m).exists() for m in _ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is an orbax checkpoint of the JAX package, which the "
+            "port does not read; convert it once where orbax is installed: "
+            f"python tests/test_torch_weights.py {path} <out.pt>")
+    d = torch.load(path, map_location="cpu", weights_only=True)
     return d["params"] if "params" in d and "opt_state" in d else d

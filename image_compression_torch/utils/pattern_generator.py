@@ -320,6 +320,32 @@ MOSAIC_GENERATORS = {
 }
 
 
+MIXED_CYCLE = ("sigma", "anticorr", "mixedmos", "flatnoise")
+
+
+def mixed_corpus(n: int, size: int, cells: tuple[int, int] = (64, 128)):
+    """The first n images of the mixed benchmark corpus at size x size:
+    the 4-class cycle sigma, anticorr, mixedmos, flatnoise (3/4 winnable
+    mosaics, 1/4 fallback controls), cells[0] for the first cycle of four,
+    cells[1] for the next, and so on, all drawn in sequence from one
+    default_rng(0) (the recipe of the reference's
+    benchmarks/make_mixed_corpus.py). Yields (stem, uint8 RGB image),
+    stems "<class>_<index:04d>"."""
+    rng = np.random.default_rng(0)
+    for i in range(n):
+        tag = MIXED_CYCLE[i % len(MIXED_CYCLE)]
+        cell = cells[(i // len(MIXED_CYCLE)) % len(cells)]
+        if tag == "sigma":
+            img, _ = generate_sigma_mosaic(size, size, rng, cell=cell)
+        elif tag == "anticorr":
+            img, _ = generate_anticorr_mosaic(size, size, rng, cell=cell)
+        elif tag == "mixedmos":
+            img, _ = generate_mixed_mosaic(size, size, rng, cell=cell)
+        else:
+            img, _ = generate_flat_noise_composite(size, size, rng)
+        yield f"{tag}_{i:04d}", img
+
+
 def generate_random_partition(height: int, width: int, num_segments: int,
                               seed: int = 0) -> np.ndarray:
     """Multi-seed BFS region growth -> connected random segmentation,

@@ -248,3 +248,39 @@ def test_spatial_solve_on_card_equals_unsharded(cuda, agg):
     got = multicut_grid_spatial(costs, make_mesh([cuda] * 4), agg=agg)
     assert (leaf.launches > n0) == (agg == "matrix")
     assert torch.equal(got, want)
+
+
+def test_flagship_compress_on_card_is_lossless(cuda, tmp_path):
+    """The trained flagship (the weights file, bf16) compresses 8 images of
+    the mixed corpus at 256x256 losslessly, launching the leaf kernel, and
+    no output is larger than its original plus a one-slice record."""
+    import pathlib
+
+    from image_compression_torch.io.image_io import (ensure_rgba,
+                                                     load_image, write_image)
+    from image_compression_torch.io.reassemble import reassemble_array
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.pipeline import compress_directory
+    from image_compression_torch.train.checkpoint import load_params
+    from image_compression_torch.utils.pattern_generator import mixed_corpus
+    weights = (pathlib.Path(__file__).resolve().parents[1]
+               / "image_compression_torch" / "weights"
+               / "fcn_pretrained_r4_mixed.pt")
+    params = load_params(weights)
+    model = EdgeUNet(base=params["inc.conv0.weight"].shape[0])
+    model.load_state_dict(params)
+    data = tmp_path / "data"
+    data.mkdir()
+    for stem, img in mixed_corpus(8, 256):
+        write_image(data / f"{stem}.png", img, 6)
+    leaf.launches = 0
+    outs = compress_directory(Config(dataset_dir=str(data),
+                                     results_dir=str(tmp_path / "out")),
+                              model, device="cuda")
+    assert leaf.launches >= 1 and len(outs) == 8
+    for out in outs:
+        src = data / f"{out.name}.png"
+        np.testing.assert_array_equal(reassemble_array(out),
+                                      ensure_rgba(load_image(src)))
+        size = sum(p.stat().st_size for p in out.iterdir())
+        assert size <= src.stat().st_size + 49, out.name
