@@ -91,7 +91,8 @@ Phases, each printing one line with its own seconds:
      the outputs decode and are within 1 level of the CPU converter's;
  13. trace: one 8 x 256x256 learned-cost compress batch inside
      utils/profiling.device_trace; the exported trace names leaf_kernel;
-     printed: the device's busy share of the batch and PhaseTimer's JSON;
+     printed: the device's busy share of the batch and the snapshot of
+     the program's spans and counters (utils/profiling.snapshot);
  14. flagship: the repo's trained U-Net (image_compression_torch/weights/
      fcn_pretrained_r4_mixed.pt, its sha256 the record's) compresses the
      first 32 images of the mixed corpus (256x256, made by the port's
@@ -151,6 +152,12 @@ REPO = pathlib.Path(__file__).resolve().parent
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def leaf_launches() -> int:
+    """The leaf kernel's launches since the last profiling.reset()."""
+    from image_compression_torch.utils.profiling import counters
+    return counters().get("leaf.launches", 0)
 
 
 @contextlib.contextmanager
@@ -446,7 +453,7 @@ def phase_main(torch, device: str, runs: list[dict], base: int) -> list[int]:
     from image_compression_torch.io.image_io import ensure_rgba
     from image_compression_torch.io.reassemble import reassemble_array
     from image_compression_torch.models.unet import EdgeUNet, init_random_
-    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.utils import profiling
     from image_compression_torch.ops.multicut import multicut_grid
 
     with phase("main path"):
@@ -495,14 +502,14 @@ def phase_main(torch, device: str, runs: list[dict], base: int) -> list[int]:
                 pipeline.compress_arrays(images, cost_fn, cfg, tmp / "warm",
                                          names, device=device)
                 timings: dict = {}
-                multicut_leaf.launches = 0
+                profiling.reset()
                 t0 = time.perf_counter()
                 dirs = pipeline.compress_arrays(images, cost_fn, cfg,
                                                 tmp / "out", names,
                                                 device=device,
                                                 timings=timings)
                 elapsed = time.perf_counter() - t0
-                launches = multicut_leaf.launches
+                launches = leaf_launches()
                 n_slices = []
                 for d, img in zip(dirs, images):
                     rec = reassemble_array(d)
@@ -587,7 +594,7 @@ def phase_big_field(torch) -> None:
     smallest flat index of its region, and the leaf kernel must launch.
     Solve only: no slices are written."""
     from image_compression_torch.config import Config
-    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.utils import profiling
     from image_compression_torch.ops.multicut import multicut_grid
 
     height, width = 3648, 5472
@@ -604,12 +611,12 @@ def phase_big_field(torch) -> None:
         multicut_grid(costs[:, :512, :512], **kw)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        multicut_leaf.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         labels = multicut_grid(costs, **kw)[0]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = multicut_leaf.launches
+        launches = leaf_launches()
         peak = torch.cuda.max_memory_allocated()
         flat = labels.reshape(-1).long()
         idx = torch.arange(n, device="cuda")
@@ -708,7 +715,7 @@ def phase_classical(torch, device: str, side: int, batch: int) -> None:
     from image_compression_torch.io import native, pypng
     from image_compression_torch.io.image_io import ensure_rgba, load_image
     from image_compression_torch.io.reassemble import reassemble_array
-    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.utils import profiling
 
     wide = side * 3 // 2
     with phase("classical compress"), tempfile.TemporaryDirectory() as tmp:
@@ -754,14 +761,14 @@ def phase_classical(torch, device: str, side: int, batch: int) -> None:
             cfg = Config(dataset_dir=str(data),
                          results_dir=str(tmp / f"out_{name[:5]}"))
             timings: dict = {}
-            multicut_leaf.launches = 0
+            profiling.reset()
             t0 = time.perf_counter()
             outs = pipeline.compress_directory(cfg, classical=target,
                                                batch_size=batch,
                                                device=device,
                                                timings=timings)
             elapsed = time.perf_counter() - t0
-            launches = multicut_leaf.launches
+            launches = leaf_launches()
             out_bytes, n_slices = 0, []
             for out, src in zip(outs, paths):
                 files = _tree_bytes(out)
@@ -816,7 +823,7 @@ def phase_classical(torch, device: str, side: int, batch: int) -> None:
 def phase_photo(torch) -> None:
     """Graph costs and the solve of one 1536x2048 image on the card."""
     from image_compression_torch.config import Config, EdgeTarget
-    from image_compression_torch.ops import multicut_leaf
+    from image_compression_torch.utils import profiling
     from image_compression_torch.ops.multicut import multicut_grid
     from image_compression_torch.pipeline import classical_costs_signed
 
@@ -828,7 +835,7 @@ def phase_photo(torch) -> None:
         classical_costs_signed(x[:, :256, :256], EdgeTarget.GRAPH)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        multicut_leaf.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         costs = classical_costs_signed(x, EdgeTarget.GRAPH)
         torch.cuda.synchronize()
@@ -849,7 +856,7 @@ def phase_photo(torch) -> None:
             f"solve {t_all:.3f} s, peak {peak / 2 ** 30:.2f} GiB allocated, "
             f"{int((costs > 0).float().mean() * 1e4) / 1e4} of edges "
             f"connect, {int(torch.unique(labels).numel())} regions, leaf "
-            f"launches {multicut_leaf.launches}")
+            f"launches {leaf_launches()}")
 
 
 def write_training_corpus(root: pathlib.Path, n_train: int, n_val: int,
@@ -926,7 +933,8 @@ def phase_training(torch, device: str, small: bool) -> dict:
     from image_compression_torch.config import Config
     from image_compression_torch.io.image_io import ensure_rgba, load_image
     from image_compression_torch.models.unet import EdgeUNet
-    from image_compression_torch.ops import multicut_leaf, prng
+    from image_compression_torch.ops import prng
+    from image_compression_torch.utils import profiling
     from image_compression_torch.ops.targets import create_target_with_mask
     from image_compression_torch.train import steps
     from image_compression_torch.train.data import ImageBatches
@@ -1022,7 +1030,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
         for i, (imgs, sizes) in enumerate(batches):
             imgs_d = torch.as_tensor(imgs).to(device)
             sizes_d = torch.as_tensor(sizes).to(device)
-            multicut_leaf.launches = 0
+            profiling.reset()
             sync()
             t0 = time.perf_counter()
             _, aux = rl_step(rl_state, key, imgs_d, sizes_d,
@@ -1030,7 +1038,7 @@ def phase_training(torch, device: str, small: bool) -> dict:
             sync()
             if i:
                 t_all += time.perf_counter() - t0
-            per_step.append(multicut_leaf.launches)
+            per_step.append(leaf_launches())
             if not np.isfinite(float(aux["reward_mean"])):
                 raise AssertionError(f"RL step {i}: reward {aux}")
         if cuda and min(per_step) < 1:
@@ -1056,12 +1064,12 @@ def phase_training(torch, device: str, small: bool) -> dict:
                 if len(evals) == 1:
                     signal.raise_signal(signal.SIGINT)
 
-        multicut_leaf.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         rl, rl_id = run_reinforce(cfg, params, log=rl_log, device=device)
         sync()
         dt = time.perf_counter() - t0
-        launches = multicut_leaf.launches
+        launches = leaf_launches()
         interrupt = tmp / "rl" / f"fcn_training_{rl_id}_interrupt"
         best = tmp / "rl" / f"fcn_training_{rl_id}_best_params"
         changed = any(not torch.equal(v, params[k])
@@ -1177,7 +1185,7 @@ def phase_spatial(torch, device: str, small: bool) -> int:
                 sync()
                 if cuda:
                     torch.cuda.reset_peak_memory_stats()
-                n0 = ml.launches
+                n0 = leaf_launches()
                 t0 = time.perf_counter()
                 if sharded:
                     labels = multicut_grid_spatial(costs, mesh, agg=agg)
@@ -1188,7 +1196,7 @@ def phase_spatial(torch, device: str, small: bool) -> int:
                 times.append(time.perf_counter() - t0)
                 peaks.append(f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
                              if cuda else "not measured")
-                delta = ml.launches - n0
+                delta = leaf_launches() - n0
             if not torch.equal(labels.to(whole.device), whole):
                 raise AssertionError(f"spatial {agg} {size}^2 over {n}: "
                                      "labels differ from the unsharded "
@@ -1316,7 +1324,7 @@ def phase_data_parallel(torch, device: str, small: bool) -> int:
 
     from image_compression_torch.config import Config
     from image_compression_torch.models.unet import EdgeUNet
-    from image_compression_torch.ops import multicut_leaf as ml
+    from image_compression_torch.utils import profiling
     from image_compression_torch.parallel import mesh
     from image_compression_torch.train.pretrain import run_pretraining
     from image_compression_torch.train.reinforce import run_reinforce
@@ -1358,7 +1366,7 @@ def phase_data_parallel(torch, device: str, small: bool) -> int:
                 params = {k: v.detach().clone()
                           for k, v in pre.model.state_dict().items()}
                 cfg.results_dir = str(tmp / name / "rl")
-                ml.launches = 0
+                profiling.reset()
                 t0 = time.perf_counter()
                 rl, _ = run_reinforce(cfg, params, log=lambda *_: None,
                                       device=device, use_mesh=True)
@@ -1367,13 +1375,13 @@ def phase_data_parallel(torch, device: str, small: bool) -> int:
                 t_rl = time.perf_counter() - t0
                 results[name] = dict(
                     pre=params, rl=rl.model.state_dict(),
-                    baseline=rl.baseline.clone(), launches=ml.launches,
+                    baseline=rl.baseline.clone(), launches=leaf_launches(),
                     records=_jsonl(tmp / name / "pre")
                     + _jsonl(tmp / name / "rl"), step=(pre.step, rl.step))
                 log(f"  {name}: run_pretraining {pre.step} steps "
                     f"{t_pre:.3f} s, run_reinforce {rl.step} steps "
                     f"{t_rl:.3f} s (with validation, evaluation and "
-                    f"checkpoints); leaf launches {ml.launches}")
+                    f"checkpoints); leaf launches {leaf_launches()}")
                 del pre, rl
             step_rates(torch, device, cfg, base, train_dir, batch)
         finally:
@@ -1478,15 +1486,13 @@ def trace_busy(events: list[dict], device: str) -> dict:
 
 def phase_trace(torch, device: str, base: int, side: int) -> dict:
     """One 8-image learned-cost compress batch inside device_trace: the
-    trace names the leaf kernel (on the card), and PhaseTimer's summary
-    is printed with the device's busy share of the traced batch (returned
-    as trace_busy gives it)."""
+    trace names the leaf kernel (on the card), and the batch's snapshot of
+    the program's spans and counters is printed with the device's busy
+    share of the traced batch (returned as trace_busy gives it)."""
     from image_compression_torch import pipeline
     from image_compression_torch.config import Config
     from image_compression_torch.models.unet import EdgeUNet, init_random_
-    from image_compression_torch.utils.profiling import (PhaseTimer,
-                                                         annotate,
-                                                         device_trace)
+    from image_compression_torch.utils.profiling import device_trace, span
 
     with phase("trace"), tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -1500,19 +1506,17 @@ def phase_trace(torch, device: str, base: int, side: int) -> dict:
         def cost_fn(b):
             return pipeline.learned_costs(model, b)
 
-        timer = PhaseTimer()
-        with timer.phase("warm-up batch"):
-            pipeline.compress_arrays(images, cost_fn, cfg, tmp / "warm",
-                                     names, device=device)
+        pipeline.compress_arrays(images, cost_fn, cfg, tmp / "warm", names,
+                                 device=device)
         with device_trace(tmp / "trace") as handle:
-            with timer.phase("traced batch"), annotate("compress_batch"):
+            with span("compress_batch", device):
                 pipeline.compress_arrays(images, cost_fn, cfg, tmp / "out",
                                          names, device=device)
-        with timer.phase("trace export"):
-            events = json.loads(handle.path.read_text())["traceEvents"]
+        events = json.loads(handle.path.read_text())["traceEvents"]
         busy = trace_busy(events, device)
         log(f"  trace {handle.path.name}: {len(events)} events{busy['text']}")
-        timer.log(lambda line: log("  " + line))
+        spans = json.loads(handle.spans_path.read_text())
+        log("  " + json.dumps({k: spans[k] for k in ("spans", "counters")}))
     return busy
 
 WEIGHTS = REPO / "image_compression_torch" / "weights"
@@ -1593,8 +1597,8 @@ def phase_flagship(torch, device: str, small: bool,
     from image_compression_torch.train import steps
     from image_compression_torch.train.checkpoint import load_params
     from image_compression_torch.train.data import ImageBatches
+    from image_compression_torch.utils import profiling
     from image_compression_torch.utils.pattern_generator import mixed_corpus
-    from image_compression_torch.utils.profiling import annotate, device_trace
 
     cuda = device == "cuda"
     key = "small" if small else "full"
@@ -1646,12 +1650,12 @@ def phase_flagship(torch, device: str, small: bool,
                            results_dir=str(tmp / f"warm_{name}")),
                     model, device=device)
             timings: dict = {}
-            ml.launches = 0
+            profiling.reset()
             t0 = time.perf_counter()
             pipeline.compress_directory(cfg, model, batch_size=batch,
                                         device=device, timings=timings)
             elapsed = time.perf_counter() - t0
-            launches = ml.launches
+            launches = leaf_launches()
             if name == "bf16" or not cuda:
                 flagship_launches = launches
             if cuda and launches < -(-n // batch):
@@ -1726,13 +1730,13 @@ def phase_flagship(torch, device: str, small: bool,
         cfg.reward.fallback_aware = True
         cfg_path = tmp / "r4_rl.json"
         cfg_path.write_text(json.dumps(cfg.to_dict()))
-        ml.launches = 0
+        profiling.reset()
         t0 = time.perf_counter()
         cli(["train", "--config", str(cfg_path), "--checkpoint",
              str(FLAGSHIP), "--device", device])
         sync()
         dt = time.perf_counter() - t0
-        rl_launches = ml.launches
+        rl_launches = leaf_launches()
         records = _jsonl(tmp / "rl")
         (final,) = (tmp / "rl").glob("fcn_training_*_final")
         trained = load_params(final)
@@ -1766,8 +1770,8 @@ def phase_flagship(torch, device: str, small: bool,
         del rl_state
 
         # one batch traced (bf16 on the card)
-        with device_trace(tmp / "trace") as handle:
-            with annotate("compress_batch"):
+        with profiling.device_trace(tmp / "trace") as handle:
+            with profiling.span("compress_batch"):
                 pipeline.compress_arrays(
                     images, lambda b: pipeline.learned_costs(model, b),
                     Config(), tmp / "traced", [p.stem for p in

@@ -33,7 +33,8 @@ Layer map:
   parallel/  -- meshes of devices and the data-parallel process group
                 (mesh), height-sharded solve and extractors (spatial)
   utils/     -- synthetic pattern generators, random partitions (numpy),
-                profiling (torch.profiler traces, phase timer)
+                tracing (spans, counters, stage clock, torch.profiler
+                traces)
   pipeline   -- compress driver
   cli/       -- `python -m image_compression_torch.cli.main`
 """

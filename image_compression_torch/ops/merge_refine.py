@@ -19,6 +19,8 @@ from image_compression_torch.ops.png_estimator import (
     class_sizes_for, estimate_segment_png_sizes_fast)
 from image_compression_torch.ops.rewards import to_rgba_u8
 from image_compression_torch.ops.segment_stats import segment_stats
+from image_compression_torch.utils.profiling import (count_device, span,
+                                                     tracing)
 
 
 def _pair_counts(left: torch.Tensor, right: torch.Tensor,
@@ -48,13 +50,14 @@ def _greedy_disjoint(values: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
     b, n = values.shape
     used = torch.zeros((b, k_max), dtype=torch.bool, device=values.device)
     accept = torch.zeros((b, n), dtype=torch.bool, device=values.device)
-    for i in range(n):
-        a, c = pa[:, i:i + 1], pb[:, i:i + 1]
-        ok = ((values[:, i:i + 1] > 0) & ~used.gather(1, a)
-              & ~used.gather(1, c))
-        used.scatter_(1, a, used.gather(1, a) | ok)
-        used.scatter_(1, c, used.gather(1, c) | ok)
-        accept[:, i:i + 1] = ok
+    with span("merge.greedy", values.device):
+        for i in range(n):
+            a, c = pa[:, i:i + 1], pb[:, i:i + 1]
+            ok = ((values[:, i:i + 1] > 0) & ~used.gather(1, a)
+                  & ~used.gather(1, c))
+            used.scatter_(1, a, used.gather(1, a) | ok)
+            used.scatter_(1, c, used.gather(1, c) | ok)
+            accept[:, i:i + 1] = ok
     return accept
 
 
@@ -177,7 +180,12 @@ def merge_refine_batch(images_f01: torch.Tensor, labels_bhw: torch.Tensor, *,
                        distance_window: int = 32768) -> torch.Tensor:
     """Batched merge refinement: images [B, H, W, 3] f01, labels [B, H, W]
     int. Returns refined labels (same dtype); minlabel inputs stay
-    minlabel."""
+    minlabel. Traced, the images that enter with one region (nothing to
+    merge: declined images) are counted as "merge.noop_images"."""
+    if tracing():
+        flat = labels_bhw.flatten(1)
+        count_device("merge.noop_images",
+                     (flat == flat[:, :1]).all(dim=1).sum())
     est_kwargs = dict(min_pixels=min_pixels, l_min=l_min, beta=beta,
                       b_match_token=b_match_token, gamma=gamma,
                       overhead_base=overhead_base,

@@ -40,6 +40,7 @@ from image_compression_torch.ops.multicut_hier import (
     hier_gaec, lean_caps, plan_levels, smallest_pixel_labels)
 from image_compression_torch.ops.multicut_tiles import (boundary_edges,
                                                         tile_presolve)
+from image_compression_torch.utils.profiling import span
 
 MODES = ("chain", "mutual", "random_mate", "hybrid")
 
@@ -84,7 +85,18 @@ def multicut_grid(costs_bhw2: torch.Tensor, max_rounds: int = 3,
     hier_leaf: "auto" | "fused" | "xla" (= "unfused"), matrix agg only.
 
     Returns labels [B, H, W] int32 (and rounds [B] int64 with
-    return_rounds)."""
+    return_rounds). Traced, a span "multicut" (a recursive call is part of
+    it)."""
+    with span("multicut", costs_bhw2.device):
+        return _solve(costs_bhw2, max_rounds, mode, icm_sweeps,
+                      matchings_per_round, tile, presolve_rounds,
+                      boundary_rounds, return_rounds, hier, hier_rounds,
+                      hier_caps, hier_agg, hier_leaf)
+
+
+def _solve(costs_bhw2, max_rounds, mode, icm_sweeps, matchings_per_round,
+           tile, presolve_rounds, boundary_rounds, return_rounds, hier,
+           hier_rounds, hier_caps, hier_agg, hier_leaf):
     if mode not in MODES:
         raise ValueError(f"unknown mode: {mode}")
     if hier_agg not in ("pixel", "matrix"):

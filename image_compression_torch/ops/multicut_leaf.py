@@ -20,7 +20,8 @@ mid-line edges; then r1 rounds.
 untiling) calls `leaf_core`, which launches the CUDA kernel on a CUDA tensor
 and runs `leaf_plain`, the plain PyTorch version, on a CPU tensor. There is
 no fallback between the two: on a CUDA tensor the kernel launches or the
-call raises. `launches` counts kernel launches.
+call raises. Each kernel launch counts "leaf.launches"
+(utils/profiling.count).
 
 What bounds the kernel on an H100: it reads ~3 KB and writes ~2 KB plus the
 [s1, s1] f32 matrix per supertile — for T1 = 2048 supertiles (8 images of
@@ -42,10 +43,9 @@ import torch
 from image_compression_torch.ops.multicut_hier import (
     LEAF_MAX_S1, _edge_pairs, _embed_children, _matrix_rounds, _take,
     bf16_round)
+from image_compression_torch.utils.profiling import count
 
 S0 = 64  # level-0 slots: the 8x8 pixels of a child tile
-
-launches = 0  # CUDA kernel launches (the plain version does not count)
 
 
 def _mid_edge_endpoints() -> tuple[np.ndarray, np.ndarray]:
@@ -131,7 +131,6 @@ def leaf_cuda(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
               pix: torch.Tensor, s1: int, r0: int, r1: int, n_pix: int):
     """The CUDA kernel: same contract as `leaf_plain`, one launch over all
     T1 supertiles on the current stream."""
-    global launches
     t1 = w0h.shape[0]
     dev = w0h.device
     for name, t, shape, dtype in (
@@ -165,7 +164,7 @@ def leaf_cuda(w0h: torch.Tensor, w0v: torch.Tensor, wmid: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"multicut_leaf kernel launch failed: "
                            f"cudaError {err}")
-    launches += 1
+    count("leaf.launches")
     return rank, gid, sym, m, ncand, over
 
 

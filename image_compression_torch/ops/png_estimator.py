@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from image_compression_torch.ops.edges import shift_plane
+from image_compression_torch.utils.profiling import span
 
 MASK32 = 0xFFFFFFFF
 
@@ -276,30 +277,31 @@ def _estimate_bucketed(imgs, inverse, counts, bboxes, valid, caps, pooled,
     cls, rank, overflow = _classify_and_pack(bboxes_g.to(torch.int64),
                                              valid_g, class_sizes, caps)
     sizes = torch.zeros((groups, slots), dtype=torch.float32, device=dev)
-    for c, side in enumerate(class_sizes):
-        crop_h, crop_w = min(side, height), min(side, width)
-        member = (cls == c) & (rank >= 1) & (rank <= caps[c])
-        g_idx, s_idx = member.nonzero(as_tuple=True)
-        if g_idx.numel() == 0:
-            continue
-        if pooled:
-            img_idx, lab_idx = s_idx // k_max, s_idx % k_max
-        else:
-            img_idx, lab_idx = g_idx, s_idx
-        bb = bboxes_g[g_idx, s_idx].to(torch.int64)
-        y0 = bb[:, 1].clamp(0, height - crop_h)
-        x0 = bb[:, 0].clamp(0, width - crop_w)
-        rows = y0[:, None] + torch.arange(crop_h, device=dev)
-        cols = x0[:, None] + torch.arange(crop_w, device=dev)
-        img_crop = imgs[img_idx[:, None, None], rows[:, :, None],
-                        cols[:, None, :]]
-        inv_crop = inverse[img_idx[:, None, None], rows[:, :, None],
-                           cols[:, None, :]]
-        bb_local = bb - torch.stack([x0, y0, x0, y0], dim=1)
-        vals = segment_sizes(img_crop, inv_crop, lab_idx, bb_local,
-                             counts_g[g_idx, s_idx], valid_g[g_idx, s_idx],
-                             **est_kwargs)
-        sizes[g_idx, s_idx] = vals
+    with span("estimator.classes", dev):
+        for c, side in enumerate(class_sizes):
+            crop_h, crop_w = min(side, height), min(side, width)
+            member = (cls == c) & (rank >= 1) & (rank <= caps[c])
+            g_idx, s_idx = member.nonzero(as_tuple=True)
+            if g_idx.numel() == 0:
+                continue
+            if pooled:
+                img_idx, lab_idx = s_idx // k_max, s_idx % k_max
+            else:
+                img_idx, lab_idx = g_idx, s_idx
+            bb = bboxes_g[g_idx, s_idx].to(torch.int64)
+            y0 = bb[:, 1].clamp(0, height - crop_h)
+            x0 = bb[:, 0].clamp(0, width - crop_w)
+            rows = y0[:, None] + torch.arange(crop_h, device=dev)
+            cols = x0[:, None] + torch.arange(crop_w, device=dev)
+            img_crop = imgs[img_idx[:, None, None], rows[:, :, None],
+                            cols[:, None, :]]
+            inv_crop = inverse[img_idx[:, None, None], rows[:, :, None],
+                               cols[:, None, :]]
+            bb_local = bb - torch.stack([x0, y0, x0, y0], dim=1)
+            vals = segment_sizes(img_crop, inv_crop, lab_idx, bb_local,
+                                 counts_g[g_idx, s_idx],
+                                 valid_g[g_idx, s_idx], **est_kwargs)
+            sizes[g_idx, s_idx] = vals
 
     # top-class overflow: literal-only upper bound (max-entropy bytes)
     w = (bboxes_g[..., 2] - bboxes_g[..., 0] + 1).to(torch.float32)

@@ -19,6 +19,7 @@ from image_compression_torch.ops.png_estimator import (
     estimate_segment_png_sizes, estimate_segment_png_sizes_fast)
 from image_compression_torch.ops.segment_stats import (segment_stats,
                                                        segment_stats_minlabel)
+from image_compression_torch.utils.profiling import span
 
 
 def to_rgba_u8(images_f01: torch.Tensor) -> torch.Tensor:
@@ -98,19 +99,22 @@ def compute_rewards_batched(images_f01: torch.Tensor,
     fallback_aware=True scores each image against the single-slice option
     compress would take instead: R = max((est_whole - est_sliced) / size,
     -fallback_reward_clip), without the single-segment penalty (the
-    all-zeros labeling is its own minlabel form)."""
-    imgs = to_rgba_u8(images_f01)
+    all-zeros labeling is its own minlabel form). Traced, a span
+    "reward"."""
     kw = dict(k_max=k_max, min_pixels=min_pixels, l_min=l_min, beta=beta,
               b_match_token=b_match_token, gamma=gamma,
               overhead_base=overhead_base, adaptive_filter=adaptive_filter,
               fast=fast, minlabel=minlabel,
               entropy_correction=entropy_correction,
               literal_hist=literal_hist, distance_window=distance_window)
-    total_est, k_valid = _total_est(imgs, labels_bhw, **kw)
-    size = image_sizes_b.to(device=imgs.device, dtype=torch.float32)
-    if fallback_aware:
-        est_whole, _ = _total_est(imgs, torch.zeros_like(labels_bhw), **kw)
-        return torch.clamp((est_whole - total_est) / size,
-                           min=-fallback_reward_clip)
-    penalty = (k_valid == 1).to(torch.float32)
-    return (size - total_est) / size - lam * penalty
+    with span("reward", images_f01.device):
+        imgs = to_rgba_u8(images_f01)
+        total_est, k_valid = _total_est(imgs, labels_bhw, **kw)
+        size = image_sizes_b.to(device=imgs.device, dtype=torch.float32)
+        if fallback_aware:
+            est_whole, _ = _total_est(imgs, torch.zeros_like(labels_bhw),
+                                      **kw)
+            return torch.clamp((est_whole - total_est) / size,
+                               min=-fallback_reward_clip)
+        penalty = (k_valid == 1).to(torch.float32)
+        return (size - total_est) / size - lam * penalty

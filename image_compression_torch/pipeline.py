@@ -41,6 +41,7 @@ from image_compression_torch.ops.merge_refine import merge_refine_batch
 from image_compression_torch.ops.multicut import multicut_grid
 from image_compression_torch.ops.rewards import estimated_total_sizes_batched
 from image_compression_torch.ops.targets import compute_edge_costs
+from image_compression_torch.utils.profiling import StageClock, span
 
 
 def classical_costs_signed(images: torch.Tensor,
@@ -106,62 +107,45 @@ def fallback_single_slice(images_f01: torch.Tensor, labels: torch.Tensor,
     return torch.where(keep[:, None, None], labels, 0)
 
 
-class _StageClock:
-    """Per-stage seconds into `timings` (when given), synchronizing the
-    device at each mark so a stage owns its device work."""
-
-    def __init__(self, timings: dict | None, device: torch.device):
-        self.timings = timings
-        self.device = device
-        self.t = time.perf_counter()
-
-    def mark(self, stage: str) -> None:
-        if self.timings is None:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.timings[stage] = self.timings.get(stage, 0.0) + now - self.t
-        self.t = now
-
-
 def _device_labels(images_u8: list[np.ndarray], cost_fn: Callable,
                    cfg: Config, device: torch.device, orig_sizes=None,
-                   clock: _StageClock | None = None) -> torch.Tensor:
+                   clock: StageClock | None = None) -> torch.Tensor:
     """The device half of compress for one batch -> labels [B, H, W]."""
-    clock = clock or _StageClock(None, device)
-    batch = torch.as_tensor(
-        np.stack([to_float01_rgb(im) for im in images_u8])).to(device)
-    costs = cost_fn(batch)
-    clock.mark("costs")
+    clock = clock or StageClock(None, device)
+    with clock.stage("costs"):
+        batch = torch.as_tensor(
+            np.stack([to_float01_rgb(im) for im in images_u8])).to(device)
+        costs = cost_fn(batch)
     mc = cfg.multicut
-    labels = segment_batch(
-        costs, mode=mc.mode, max_rounds=mc.max_rounds,
-        icm_sweeps=mc.icm_sweeps,
-        hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
-        hier_caps=mc.hier_caps, hier_agg=mc.hier_agg, hier_leaf=mc.hier_leaf,
-        matchings_per_round=mc.matchings_per_round)
-    clock.mark("solver")
+    with clock.stage("solver"):
+        labels = segment_batch(
+            costs, mode=mc.mode, max_rounds=mc.max_rounds,
+            icm_sweeps=mc.icm_sweeps,
+            hier_rounds=tuple(mc.hier_rounds) if mc.hier_rounds else None,
+            hier_caps=mc.hier_caps, hier_agg=mc.hier_agg,
+            hier_leaf=mc.hier_leaf,
+            matchings_per_round=mc.matchings_per_round)
     rw = cfg.reward
-    if cfg.compress_fallback:
-        labels = fallback_single_slice(
-            batch, labels, cfg.fallback_margin, k_max=rw.max_segments,
-            entropy_correction=rw.entropy_correction,
-            literal_hist=rw.literal_hist, overhead_base=rw.overhead_base,
-            distance_window=rw.distance_window,
-            orig_sizes=(torch.as_tensor(orig_sizes, dtype=torch.float32,
-                                        device=device)
-                        if orig_sizes is not None else None))
-    clock.mark("fallback")
+    with clock.stage("fallback"):
+        if cfg.compress_fallback:
+            labels = fallback_single_slice(
+                batch, labels, cfg.fallback_margin, k_max=rw.max_segments,
+                entropy_correction=rw.entropy_correction,
+                literal_hist=rw.literal_hist, overhead_base=rw.overhead_base,
+                distance_window=rw.distance_window,
+                orig_sizes=(torch.as_tensor(orig_sizes, dtype=torch.float32,
+                                            device=device)
+                            if orig_sizes is not None else None))
     # ORDER MATTERS (module docstring): merge only after the decision
-    if cfg.merge_refine_rounds:
-        labels = merge_refine_batch(
-            batch, labels, k_max=rw.max_segments,
-            rounds=cfg.merge_refine_rounds, overhead_base=rw.overhead_base,
-            entropy_correction=rw.entropy_correction,
-            literal_hist=rw.literal_hist,
-            distance_window=rw.distance_window)
-    clock.mark("merge")
+    with clock.stage("merge"):
+        if cfg.merge_refine_rounds:
+            labels = merge_refine_batch(
+                batch, labels, k_max=rw.max_segments,
+                rounds=cfg.merge_refine_rounds,
+                overhead_base=rw.overhead_base,
+                entropy_correction=rw.entropy_correction,
+                literal_hist=rw.literal_hist,
+                distance_window=rw.distance_window)
     return labels
 
 
@@ -235,14 +219,13 @@ def compress_arrays(images_u8: list[np.ndarray], cost_fn: Callable,
     extractor). With `timings`, per-stage seconds (costs, solver, fallback,
     merge, wire, write) are added into it."""
     dev = resolve_device(device)
-    clock = _StageClock(timings, dev)
+    clock = StageClock(timings, dev)
     with torch.inference_mode():
         labels = _device_labels(images_u8, cost_fn, cfg, dev, clock=clock)
-        wire = _pack_wire(labels)
-    clock.mark("wire")
-    out = _write_batch(images_u8, wire, cfg, results_dir, names)
-    clock.mark("write")
-    return out
+        with clock.stage("wire"):
+            wire = _pack_wire(labels)
+    with clock.stage("write"):
+        return _write_batch(images_u8, wire, cfg, results_dir, names)
 
 
 def image_dims(path: pathlib.Path) -> tuple[int, int]:
@@ -255,9 +238,13 @@ def image_dims(path: pathlib.Path) -> tuple[int, int]:
     return load_image(path).shape[:2]
 
 
-def _timed_write(*args, **kwargs) -> tuple[list[pathlib.Path], float]:
+def _timed_write(*args, batch: int | None = None,
+                 **kwargs) -> tuple[list[pathlib.Path], float]:
+    """The writer thread's _write_batch of batch number `batch`, and its
+    seconds."""
     t0 = time.perf_counter()
-    out = _write_batch(*args, **kwargs)
+    with span("write", id=batch):
+        out = _write_batch(*args, **kwargs)
     return out, time.perf_counter() - t0
 
 
@@ -277,7 +264,11 @@ def compress_directory(cfg: Config, model: EdgeUNet | None = None,
     i + 1's device half runs; the outputs are those of a serial run, and a
     write failure raises here. With `timings`, per-stage seconds are added
     into it: the device stages as in compress_arrays, "write" summed over
-    the worker's batches (it overlaps the device stages)."""
+    the worker's batches (it overlaps the device stages). Traced, each batch
+    is a span "compress.batch" (from its load through its wire, id = the
+    batch's number) holding "load" and the stages; "write_wait" is the
+    wait for the previous batch's write, "write" the write itself in the
+    worker's thread."""
     dev = resolve_device(device)
     paths = find_image_files_recursively(cfg.dataset_dir, cfg.image_format)
     if limit:
@@ -297,38 +288,46 @@ def compress_directory(cfg: Config, model: EdgeUNet | None = None,
     by_shape: dict[tuple[int, int], list[pathlib.Path]] = {}
     for path in paths:
         by_shape.setdefault(image_dims(path), []).append(path)
-    clock = _StageClock(timings, dev)
+    clock = StageClock(timings, dev)
     out: list[pathlib.Path] = []
     pending = None  # the future of the previous batch's write
 
-    def collect(fut):
-        dirs, seconds = fut.result()  # re-raises the worker's failure
+    def device_half(number, chunk, pad):
+        """Batch `number`: its PNGs loaded and padded, and its wire."""
+        with span("compress.batch", dev, id=number):
+            with span("load"):
+                imgs = [load_image(p) for p in chunk]
+            imgs += imgs[-1:] * pad
+            sizes = [p.stat().st_size for p in chunk]
+            sizes += sizes[-1:] * pad
+            with torch.inference_mode():
+                labels = _device_labels(imgs, cost_fn, cfg, dev,
+                                        orig_sizes=sizes, clock=clock)
+                with clock.stage("wire"):
+                    return imgs, _pack_wire(labels)
+
+    def collect(fut, number):
+        with span("write_wait", id=number):
+            dirs, seconds = fut.result()  # re-raises the worker's failure
         out.extend(dirs)
         if timings is not None:
             timings["write"] = timings.get("write", 0.0) + seconds
 
+    number = 0
     with ThreadPoolExecutor(1) as pool:
         for _shape, group in sorted(by_shape.items()):
             for i in range(0, len(group), batch_size):
                 chunk = group[i:i + batch_size]
-                imgs = [load_image(p) for p in chunk]
                 pad = batch_size - len(chunk) if len(group) > batch_size \
                     else 0
-                sizes = [p.stat().st_size for p in chunk]
-                sizes += sizes[-1:] * pad
-                clock.t = time.perf_counter()
-                with torch.inference_mode():
-                    labels = _device_labels(imgs + imgs[-1:] * pad, cost_fn,
-                                            cfg, dev, orig_sizes=sizes,
-                                            clock=clock)
-                    wire = _pack_wire(labels)
-                clock.mark("wire")
+                imgs, wire = device_half(number, chunk, pad)
                 if pending is not None:
-                    collect(pending)
+                    collect(pending, number - 1)
                 pending = pool.submit(
-                    _timed_write, imgs + imgs[-1:] * pad, wire, cfg,
-                    cfg.results_dir, [p.stem for p in chunk] + [None] * pad,
-                    src_paths=list(chunk) + [None] * pad)
+                    _timed_write, imgs, wire, cfg, cfg.results_dir,
+                    [p.stem for p in chunk] + [None] * pad,
+                    src_paths=list(chunk) + [None] * pad, batch=number)
+                number += 1
         if pending is not None:
-            collect(pending)
+            collect(pending, number - 1)
     return out

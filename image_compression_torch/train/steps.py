@@ -32,7 +32,6 @@ one process.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
@@ -59,6 +58,7 @@ from image_compression_torch.train.policy import (antithetic_advantage,
                                                   sample_antithetic_policy,
                                                   sample_gaussian_policy,
                                                   whitened_advantage)
+from image_compression_torch.utils.profiling import StageClock, span
 
 ADAM_BETAS = (0.9, 0.999)  # optax's defaults
 ADAM_EPS = 1e-8
@@ -419,17 +419,18 @@ class RLStep:
         """-> (w [B', E], rewards [B']): the sample keyed by
         fold_in(key, step_idx), solved and rewarded on its own image."""
         key = prng.fold_in(key, step_idx)
-        noise = None
-        if self.dp:
-            global_batch = mu.shape[0] * pmesh.world()[1]
-            noise = policy_noise(key, mu, pmesh.rank_slice(global_batch),
-                                 global_batch)
+        with span("sample", mu.device):
+            noise = None
+            if self.dp:
+                global_batch = mu.shape[0] * pmesh.world()[1]
+                noise = policy_noise(key, mu, pmesh.rank_slice(global_batch),
+                                     global_batch)
+            sampler = (sample_antithetic_policy if self.antithetic
+                       else sample_gaussian_policy)
+            w = sampler(key, mu, sigma, noise).w
         if self.antithetic:
-            w = sample_antithetic_policy(key, mu, sigma, noise).w
             images = torch.cat([images, images], dim=0)
             image_sizes = torch.cat([image_sizes, image_sizes], dim=0)
-        else:
-            w = sample_gaussian_policy(key, mu, sigma, noise).w
         return w, solve_and_reward(w, images, image_sizes, self.cfg)[1]
 
     def update(self, state: RLState, w: torch.Tensor, images: torch.Tensor,
@@ -498,27 +499,17 @@ class RLStep:
                  timings: dict | None = None):
         """Runs the three stages; with `timings`, adds each stage's seconds
         (the device synchronized at each boundary) under "forward",
-        "solve_reward" and "update"."""
-        t = time.perf_counter()
-
-        def mark(stage):
-            nonlocal t
-            if timings is None:
-                return
-            if images.device.type == "cuda":
-                torch.cuda.synchronize(images.device)
-            now = time.perf_counter()
-            timings[stage] = timings.get(stage, 0.0) + now - t
-            t = now
-
-        mu, sigma = self.forward(state, images)
-        mark("forward")
-        w, rewards = self.solve_reward(key, state.step, mu, sigma, images,
-                                       image_sizes)
-        mark("solve_reward")
-        out = self.update(state, w, images, rewards, mu, sigma)
-        mark("update")
-        return out
+        "solve_reward" and "update". Traced, the step is a span "rl.step"
+        (id = the state's step before it) holding the three stages."""
+        clock = StageClock(timings, images.device)
+        with span("rl.step", images.device, id=state.step):
+            with clock.stage("forward"):
+                mu, sigma = self.forward(state, images)
+            with clock.stage("solve_reward"):
+                w, rewards = self.solve_reward(key, state.step, mu, sigma,
+                                               images, image_sizes)
+            with clock.stage("update"):
+                return self.update(state, w, images, rewards, mu, sigma)
 
 
 def make_rl_step(cfg: Config, data_parallel: bool = False) -> RLStep:

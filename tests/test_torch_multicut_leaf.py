@@ -27,6 +27,7 @@ from image_compression_torch.ops.multicut import (multicut_grid,
                                                   multicut_objective)
 from image_compression_torch.ops.multicut_hier import (
     default_caps, hier_gaec, lean_caps, plan_levels, smallest_pixel_labels)
+from image_compression_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -167,17 +168,21 @@ def test_fused_requires_applicable_config():
                   leaf="fused")
 
 
+def launches() -> int:
+    return counters().get("leaf.launches", 0)
+
+
 def test_cpu_tensor_runs_plain_version_without_counting():
-    """On a CPU tensor the wrapper runs the plain version; the launch
-    counter counts kernel launches only."""
-    before = tleaf.launches
+    """On a CPU tensor the wrapper runs the plain version; the
+    "leaf.launches" counter counts kernel launches only."""
+    before = launches()
     args = (*tleaf.leaf_inputs(torch.as_tensor(_int_costs((32, 32))[None])),
             64, 2, 1, 32 * 32)
     got = tleaf.leaf_core(*args)
     want = tleaf.leaf_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-    assert tleaf.launches == before
+    assert launches() == before
 
 
 def test_leaf_cuda_rejects_cpu_tensors():

@@ -1,0 +1,218 @@
+"""utils/profiling.py, the port's tracing: spans and counters off and on,
+the Chrome trace and the snapshot, and the spans the program opens in a
+classical compress and a REINFORCE step. CPU, a few seconds; the cases
+marked `cuda` count syncs and read device time on a card and skip
+without one. This file imports no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
+"""
+
+import json
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from image_compression_torch import pipeline
+from image_compression_torch.config import Config, EdgeTarget
+from image_compression_torch.io import pypng
+from image_compression_torch.utils import profiling
+from image_compression_torch.utils.profiling import (count, count_device,
+                                                     counters, device_trace,
+                                                     records, snapshot, span)
+
+
+@pytest.fixture(autouse=True)
+def fresh():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def test_span_off_is_nothing(monkeypatch):
+    """With no profiler running a span opens no record_function range and
+    keeps no record; count() still adds to the tally, and count_device()
+    does nothing."""
+    opened = []
+    monkeypatch.setattr(profiling, "record_function",
+                        lambda name: opened.append(name))
+    assert not profiling.tracing()
+    with span("outer", "cpu", id=3):
+        with span("inner"):
+            torch.ones(4) + 1
+            count("n", 2)
+            count_device("d", torch.ones((), dtype=torch.int64))
+    assert opened == [] and records() == []
+    assert counters() == {"n": 2}
+    assert snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_chrome_trace_holds_the_spans(tmp_path):
+    """Under device_trace each span is a range of the trace enclosing the
+    ops run inside it; parents and ids nest; a span in another thread
+    sits on that thread's own stack and keeps the id it is given."""
+    def writer():
+        with span("write", id=7):
+            torch.ones(8) * 2
+
+    with device_trace(tmp_path) as handle:
+        with span("outer", id=7):
+            with span("inner"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            worker = threading.Thread(target=writer, name="writer")
+            worker.start()
+            worker.join(timeout=30)
+    assert not worker.is_alive()
+    events = json.loads(handle.path.read_text())["traceEvents"]
+    ranges = {e["name"]: e for e in events if e.get("ph") == "X"
+              and e["name"] in ("outer", "inner")}
+    mm = [e for e in events if e.get("name") == "aten::mm"]
+    assert set(ranges) == {"outer", "inner"} and len(mm) == 1
+
+    def inside(a, b):
+        return b["ts"] <= a["ts"] and a["ts"] + a["dur"] <= b["ts"] + b["dur"]
+
+    assert inside(mm[0], ranges["inner"])
+    assert inside(ranges["inner"], ranges["outer"])
+    got = {r["name"]: r for r in records()}
+    assert got["inner"]["parent"] == "outer" and got["inner"]["id"] == 7
+    assert got["outer"]["parent"] is None and got["outer"]["id"] == 7
+    assert got["write"]["parent"] is None and got["write"]["id"] == 7
+    assert got["write"]["thread"] == "writer"
+    assert got["write"]["thread"] != got["outer"]["thread"]
+    assert (got["outer"]["start_ns"] <= got["inner"]["start_ns"]
+            <= got["inner"]["end_ns"] <= got["outer"]["end_ns"])
+    written = json.loads(handle.spans_path.read_text())
+    assert written["spans"]["inner"]["count"] == 1
+    assert len(written["records"]) == 3
+
+
+def test_snapshot_format(tmp_path):
+    """snapshot(): per span name count, host seconds, device seconds (None
+    without a card) and syncs; the counters counted inside spans, host and
+    device; a recursive span is part of its caller's."""
+    with device_trace(tmp_path):
+        count("outside")
+        for _ in range(2):
+            with span("solve", "cpu"):
+                with span("solve"):
+                    count("calls", 3)
+                count_device("images", torch.tensor(2))
+    snap = snapshot()
+    assert set(snap) == {"spans", "counters"}
+    assert set(snap["spans"]) == {"solve"}
+    solve = snap["spans"]["solve"]
+    assert set(solve) == {"count", "host_s", "device_s", "syncs"}
+    assert solve["count"] == 2 and solve["syncs"] == 0
+    assert solve["host_s"] > 0 and solve["device_s"] is None
+    assert snap["counters"] == {"calls": 6, "images": 4}
+    assert counters() == {"outside": 1, "calls": 6}
+
+
+def _corpus(root):
+    """Six 64x64 PNGs: three of four distinct quadrants (graph costs keep
+    a slicing) and three of noise (declined: one region)."""
+    rng = np.random.default_rng(5)
+    root.mkdir()
+    for i in range(6):
+        img = rng.integers(0, 256, (64, 64, 3), np.uint8)
+        if i % 2 == 0:
+            img[:32, :32] = rng.integers(0, 16, (32, 32, 3))
+            img[:32, 32:] = (200, 0, 0)
+            img[32:, 32:] = np.arange(32, dtype=np.uint8)[None, :, None] * 8
+        (root / f"im{i}.png").write_bytes(pypng.encode(img))
+    return root
+
+
+def test_compress_directory_spans(tmp_path, monkeypatch):
+    """A classical (GRAPH) compress of 3 batches of 2 records 3 batches,
+    each with its load and the wait for its write; the writes run in the
+    worker's thread under their batch's id; merge.noop_images counts the
+    one-region (all-zero) label planes merge refinement received."""
+    noop = []
+    merge = pipeline.merge_refine_batch
+
+    def counted_merge(images, labels, **kw):
+        noop.append(int((labels.flatten(1) == 0).all(dim=1).sum()))
+        return merge(images, labels, **kw)
+
+    monkeypatch.setattr(pipeline, "merge_refine_batch", counted_merge)
+    cfg = Config(dataset_dir=str(_corpus(tmp_path / "data")),
+                 results_dir=str(tmp_path / "out"))
+    with device_trace(tmp_path / "trace"):
+        dirs = pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                           batch_size=2, device="cpu")
+    assert len(dirs) == 6
+    spans = snapshot()["spans"]
+    for name in ("compress.batch", "load", "write_wait", "write", "costs",
+                 "solver", "multicut", "fallback", "merge", "wire"):
+        assert spans[name]["count"] == 3, name
+    got = records()
+    batches = [r for r in got if r["name"] == "compress.batch"]
+    assert [r["id"] for r in batches] == [0, 1, 2]
+    assert {r["parent"] for r in got if r["name"] in ("load", "costs",
+                                                      "merge")} == {
+        "compress.batch"}
+    writes = [r for r in got if r["name"] == "write"]
+    assert sorted(r["id"] for r in writes) == [0, 1, 2]
+    assert {r["parent"] for r in writes} == {None}
+    assert {r["thread"] for r in writes}.isdisjoint(
+        {r["thread"] for r in batches})
+    waits = [r for r in got if r["name"] == "write_wait"]
+    assert [r["id"] for r in waits] == [0, 1, 2]
+    assert len(noop) == 3 and 0 < sum(noop) < 6
+    assert snapshot()["counters"]["merge.noop_images"] == sum(noop)
+
+
+def test_rl_step_spans(tmp_path):
+    """A tiny REINFORCE step records sample, multicut and reward under
+    solve_reward, the three stages under rl.step, all with the step's id."""
+    from image_compression_torch.models.unet import EdgeUNet, init_random_
+    from image_compression_torch.ops import prng
+    from image_compression_torch.train import steps
+
+    cfg = Config()
+    cfg.reward.max_segments = 16
+    model = init_random_(EdgeUNet(base=8, dtype=torch.float32), seed=0)
+    state = steps.init_rl_state(model, cfg)
+    images = torch.as_tensor(
+        np.random.default_rng(1).random((2, 32, 32, 3)).astype(np.float32))
+    sizes = torch.tensor([2600.0, 2900.0])
+    with device_trace(tmp_path):
+        steps.make_rl_step(cfg)(state, prng.prng_key(0), images, sizes)
+    parents = {r["name"]: (r["parent"], r["id"]) for r in records()}
+    assert parents["rl.step"] == (None, 0)
+    for stage in ("forward", "solve_reward", "update"):
+        assert parents[stage] == ("rl.step", 0)
+    for name in ("sample", "multicut", "reward"):
+        assert parents[name] == ("solve_reward", 0)
+    assert snapshot()["spans"]["multicut"]["count"] == 1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: syncs and device time exist only on "
+                    "the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_syncs_and_device_time_on_card(cuda, tmp_path):
+    """A nonzero inside a span counts one sync, a sum none; spans on the
+    card have device seconds; the sync debug mode is restored."""
+    x = torch.arange(1000, device=cuda) % 3
+    mode = torch.cuda.get_sync_debug_mode()
+    with device_trace(tmp_path):
+        with span("step", cuda):
+            with span("nonzero", cuda):
+                x.nonzero()
+            with span("sum", cuda):
+                x.sum()
+    assert torch.cuda.get_sync_debug_mode() == mode
+    spans = snapshot()["spans"]
+    assert spans["nonzero"]["syncs"] == 1 and spans["sum"]["syncs"] == 0
+    assert spans["step"]["syncs"] == 1
+    assert all(s["device_s"] is not None and s["device_s"] >= 0
+               for s in spans.values())
