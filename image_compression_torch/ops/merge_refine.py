@@ -19,8 +19,7 @@ from image_compression_torch.ops.png_estimator import (
     class_sizes_for, estimate_segment_png_sizes_fast)
 from image_compression_torch.ops.rewards import to_rgba_u8
 from image_compression_torch.ops.segment_stats import segment_stats
-from image_compression_torch.utils.profiling import (count_device, span,
-                                                     tracing)
+from image_compression_torch.utils.profiling import count, span, tracing
 
 
 def _pair_counts(left: torch.Tensor, right: torch.Tensor,
@@ -180,12 +179,23 @@ def merge_refine_batch(images_f01: torch.Tensor, labels_bhw: torch.Tensor, *,
                        distance_window: int = 32768) -> torch.Tensor:
     """Batched merge refinement: images [B, H, W, 3] f01, labels [B, H, W]
     int. Returns refined labels (same dtype); minlabel inputs stay
-    minlabel. Traced, the images that enter with one region (nothing to
-    merge: declined images) are counted as "merge.noop_images"."""
+    minlabel.
+
+    An image that enters with one region (a declined image) has nothing to
+    merge: its round is the identity (no boundary, so no pair is accepted).
+    Merging is per image, so only the images with more than one region run
+    the rounds, as a sub-batch written back into a copy of the labels; a
+    batch of one-region images comes back as it is. Deciding costs one
+    sync. Traced, the images passed over are counted as
+    "merge.noop_images"."""
+    b = labels_bhw.shape[0]
+    flat = labels_bhw.flatten(1)
+    multi = (flat != flat[:, :1]).any(dim=1)
+    n_multi = int(multi.sum())
     if tracing():
-        flat = labels_bhw.flatten(1)
-        count_device("merge.noop_images",
-                     (flat == flat[:, :1]).all(dim=1).sum())
+        count("merge.noop_images", b - n_multi)
+    if n_multi == 0:
+        return labels_bhw
     est_kwargs = dict(min_pixels=min_pixels, l_min=l_min, beta=beta,
                       b_match_token=b_match_token, gamma=gamma,
                       overhead_base=overhead_base,
@@ -193,8 +203,18 @@ def merge_refine_batch(images_f01: torch.Tensor, labels_bhw: torch.Tensor, *,
                       entropy_correction=entropy_correction,
                       literal_hist=literal_hist,
                       distance_window=distance_window)
-    imgs = to_rgba_u8(images_f01)
+    images, labels = images_f01, labels_bhw
+    if n_multi < b:
+        # the multi-region images' indices, ascending (a sort, where
+        # nonzero would sync again)
+        idx = torch.sort(multi.to(torch.uint8), descending=True,
+                         stable=True).indices[:n_multi]
+        images = images_f01.index_select(0, idx)
+        labels = labels_bhw.index_select(0, idx)
+    imgs = to_rgba_u8(images)
     for _ in range(rounds):
-        labels_bhw = _merge_round(imgs, labels_bhw, k_max=k_max,
-                                  max_pairs=max_pairs, est_kwargs=est_kwargs)
-    return labels_bhw
+        labels = _merge_round(imgs, labels, k_max=k_max,
+                              max_pairs=max_pairs, est_kwargs=est_kwargs)
+    if n_multi < b:
+        labels = labels_bhw.index_copy(0, idx, labels)
+    return labels

@@ -165,6 +165,36 @@ def test_compress_directory_spans(tmp_path, monkeypatch):
     assert snapshot()["counters"]["merge.noop_images"] == sum(noop)
 
 
+def test_declined_batch_skips_merge(tmp_path, monkeypatch):
+    """A traced compress batch of noise images, every one declined: merge
+    refinement counts each as merge.noop_images and runs no round, so no
+    merge.greedy span is recorded."""
+    declined = []
+    merge = pipeline.merge_refine_batch
+
+    def checked_merge(images, labels, **kw):
+        declined.append(bool((labels == 0).all()))
+        return merge(images, labels, **kw)
+
+    monkeypatch.setattr(pipeline, "merge_refine_batch", checked_merge)
+    rng = np.random.default_rng(6)
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(3):
+        (data / f"noise{i}.png").write_bytes(pypng.encode(
+            rng.integers(0, 256, (64, 64, 3), np.uint8)))
+    cfg = Config(dataset_dir=str(data), results_dir=str(tmp_path / "out"))
+    with device_trace(tmp_path / "trace"):
+        dirs = pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                           batch_size=3, device="cpu")
+    assert len(dirs) == 3 and declined == [True]
+    snap = snapshot()
+    assert snap["spans"]["compress.batch"]["count"] == 1
+    assert snap["spans"]["merge"]["count"] == 1
+    assert snap["counters"]["merge.noop_images"] == 3
+    assert "merge.greedy" not in {r["name"] for r in records()}
+
+
 def test_rl_step_spans(tmp_path):
     """A tiny REINFORCE step records sample, multicut and reward under
     solve_reward, the three stages under rl.step, all with the step's id."""
