@@ -2,12 +2,18 @@
 entry point, `image_compression_torch.pipeline.compress_directory`.
 
 Set-up writes the cell's corpus from the seed, loads the configuration's
-weights file into the program's EdgeUNet and compresses one batch to warm
-up (the first run in a checkout also builds the leaf kernel and the PNG
-writer there). A job is one compress_directory call over the whole corpus
-directory into a fresh results directory, at the configuration's batch
-size; its output bytes are measured, then deleted. The window holds every
-job that started inside --seconds. One job, drawn from the seed among the
+weights file into the program's EdgeUNet and warms up on one whole job:
+every batch the window runs (the corpus's partial batch too), the writer
+over a whole job and the first reads of the corpus (the first run in a
+checkout also builds the leaf kernel and the PNG writer there). A job is
+one compress_directory call over the whole corpus directory into a fresh
+results directory, at the configuration's batch size. The window's clock
+runs around each call alone: its length is the summed seconds of its jobs,
+it holds every job that started before that sum reached --seconds, and
+`images_per_s` is the images completed over that sum. Between the timed
+calls each job's seconds go to standard error and its output bytes are
+measured, then deleted (at once: a job's pages deleted within seconds are
+never written back to disk). One job, drawn from the seed among the
 window's first two, keeps its output, the U-Net outputs the program
 computed (a forward hook on the model) and the solver's labels before the
 fallback with the cost planes they were solved from (`segment_batch`
@@ -19,6 +25,7 @@ from __future__ import annotations
 import hashlib
 import pathlib
 import shutil
+import sys
 import time
 
 import torch
@@ -83,27 +90,22 @@ class Run:
         self.model = load_model(self.config, self.device).eval()
         self.cfg = Config.from_dict(self.config["settings"])
         self.cfg.dataset_dir = str(corpus_dir)
-        warm = self.workdir / "warm"
-        warm.mkdir()
-        for stem in list(self.corpus)[:self.batch_size]:
-            shutil.copyfile(corpus_dir / f"{stem}.png", warm / f"{stem}.png")
-        self._job(warm, self.workdir / "warm_out")
-        shutil.rmtree(warm)
+        self._job(corpus_dir, self.workdir / "warm_out")
         shutil.rmtree(self.workdir / "warm_out")
 
     def _job(self, dataset: pathlib.Path, out: pathlib.Path,
-             timings: dict | None = None) -> dict:
+             timings: dict | None = None) -> list[pathlib.Path]:
         self.cfg.dataset_dir = str(dataset)
         self.cfg.results_dir = str(out)
-        dirs = self.pipeline.compress_directory(
+        return self.pipeline.compress_directory(
             self.cfg, model=self.model, batch_size=self.batch_size,
             device=self.device, timings=timings)
-        return {d.name: _dir_bytes(d) for d in dirs}
 
     def _capture(self, _module, args, out) -> None:
         self.captured.append((args[0], out))
 
-    def _kept_job(self, dataset: pathlib.Path, out: pathlib.Path) -> dict:
+    def _kept_job(self, dataset: pathlib.Path, out: pathlib.Path,
+                  timings: dict | None = None) -> list[pathlib.Path]:
         """A job that keeps what the check compares: the U-Net's inputs and
         outputs, and each batch's cost planes and labels from the solver."""
         pipe = self.pipeline
@@ -117,7 +119,7 @@ class Run:
         hook = self.model.register_forward_hook(self._capture)
         pipe.segment_batch = kept
         try:
-            return self._job(dataset, out, self.timings)
+            return self._job(dataset, out, timings)
         finally:
             pipe.segment_batch = solve
             hook.remove()
@@ -126,17 +128,18 @@ class Run:
         corpus_dir = self.workdir / "corpus"
         self.timings = {} if timings else None
         self.jobs: list[dict] = []
-        t0 = time.perf_counter()
-        while time.perf_counter() - t0 < seconds:
+        self.job_s: list[float] = []
+        while sum(self.job_s) < seconds:
             j = len(self.jobs)
             out = self.workdir / f"out{j}"
-            if j == self.check_job:
-                sizes = self._kept_job(corpus_dir, out)
-            else:
-                sizes = self._job(corpus_dir, out, self.timings)
+            job = self._kept_job if j == self.check_job else self._job
+            t0 = time.perf_counter()
+            dirs = job(corpus_dir, out, self.timings)
+            self.job_s.append(time.perf_counter() - t0)
+            print(f"job {j} {self.job_s[-1]:.6f} s", file=sys.stderr)
+            self.jobs.append({d.name: _dir_bytes(d) for d in dirs})
+            if j != self.check_job:
                 shutil.rmtree(out)
-            self.jobs.append(sizes)
-        window_s = time.perf_counter() - t0
         n = len(self.corpus)
         self.attempted = n * len(self.jobs)
         # an image whose output never came
@@ -147,7 +150,8 @@ class Run:
                                f"checked job is job {self.check_job}")
         first = self.jobs[0]
         orig = sum(rec["png_bytes"] for rec in self.corpus.values())
-        return {"images_per_s": self.attempted / window_s,
+        return {"images_per_s": (self.attempted - self.failed)
+                / sum(self.job_s),
                 "out_orig": sum(first.get(s, 0) for s in self.corpus) / orig}
 
     def profile(self) -> dict | None:

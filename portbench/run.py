@@ -4,7 +4,7 @@
         --trace <0|1>
 
 Run from the root of a checkout on a machine with the cards the cell asks
-for. Set-up (the corpus from the seed, the weights, one warm-up batch or
+for. Set-up (the corpus from the seed, the weights, one warm-up job or
 the first training steps) counts as `setup_s`; then the window measures
 for --seconds; then the correctness check holds what the window produced
 against the plain reference under portbench/reference/. The last line of

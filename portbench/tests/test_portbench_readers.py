@@ -1,10 +1,12 @@
-"""Each per-layer reader on a canned timings dict and a canned Chrome
-trace; the trace reduction itself."""
+"""Each per-layer reader on a canned timings dict, a canned Chrome trace
+and a canned snapshot of the program's spans and counters; the trace
+reduction itself."""
 
 import pytest
 
 from portbench import harness, trace
 from portbench.cost import model as cost
+from image_compression_torch.utils import profiling
 
 BENCH = harness.manifest()
 CONFIG = {"compress": harness.cell_spec("flagship.mixed1024")["config"],
@@ -61,6 +63,22 @@ def ctx(driver):
     return base
 
 
+def _span(count, host_s=0.0, device_s=None, syncs=0):
+    return {"count": count, "host_s": host_s, "device_s": device_s,
+            "syncs": syncs}
+
+
+# what the program's profiling.snapshot() returns after a traced compress
+# job of 2 batches and 5 traced RL steps, on a card
+SNAPSHOT = {
+    "spans": {"compress.batch": _span(2, 1.0, 0.8, syncs=78),
+              "load": _span(2, 0.4), "write_wait": _span(2, 0.03),
+              "rl.step": _span(5, 0.6, 0.5, syncs=125),
+              "multicut": _span(5, 0.2, 0.125),
+              "reward": _span(5, 0.4, 0.35)},
+    "counters": {"merge.noop_images": 16}}
+EMPTY = {"spans": {}, "counters": {}}
+
 EXPECTED = {
     "costs_ms": 25.0, "solver_ms": 50.0, "fallback_ms": 75.0,
     "merge_ms": 100.0, "write_ms": 125.0,
@@ -76,12 +94,16 @@ EXPECTED = {
     / 1e-3 / 989e12,
     "train_mfu": 100 * 2 * 4 * 8 * cost.unet_forward_flops(256, 256, 64)
     / 1e-3 / 989e12,
+    "load_ms": 200.0, "write_wait_ms": 15.0, "merge_noop_images": 8.0,
+    "syncs_per_batch.compress": 39.0,
+    "rl_solve_ms": 25.0, "rl_reward_ms": 70.0, "syncs_per_step.train": 25.0,
 }
 
 
 @pytest.mark.parametrize("metric", [m for m in BENCH["per_layer"]],
                          ids=[m["name"] for m in BENCH["per_layer"]])
-def test_reader(metric):
+def test_reader(metric, monkeypatch):
+    monkeypatch.setattr(profiling, "snapshot", lambda: SNAPSHOT)
     read = harness.reader(metric["name"])
     driver = ("rl" if metric["moves"] in ("steps_per_s", "step_p95_ms")
               else "compress")
@@ -89,4 +111,9 @@ def test_reader(metric):
     other = "compress" if driver == "rl" else "rl"
     assert read(ctx(other)) is None     # another driver's cell
     empty = dict(ctx(driver), trace=None, timings={})
+    monkeypatch.setattr(profiling, "snapshot", lambda: EMPTY)
     assert read(empty) is None          # nothing to read: no number
+
+
+def test_every_reader_has_an_expected_value():
+    assert set(EXPECTED) == {m["name"] for m in BENCH["per_layer"]}
