@@ -206,6 +206,11 @@ class Config:
     #   (compute_rewards.cu:182-192; pipeline.py::fallback_single_slice).
     #   Product divergence: the reference always slices and measurably
     #   expands natural images (compress.cpp:93-153; BENCHMARKS.md).
+    #   The port also enforces never-expand on what it writes: a kept
+    #   slicing whose encoded files would exceed the source's bytes + 49
+    #   (a one-slice metadata.bin) is written as the passthrough instead
+    #   (pipeline.py, the never-expand guard); the estimator only
+    #   predicts the size.
     merge_refine_rounds: int = 2  # product default: estimator-guided
     #   region-merge refinement AFTER the fallback decision
     #   (ops/merge_refine.py): per round, adjacent region pairs are
@@ -222,8 +227,9 @@ class Config:
     #   1.8 on the over-merged strips) and lzwin's +1.2pp regression is
     #   4x mixed's -0.3pp gain, so 2 is the default. No-op on
     #   fallen-back images (all-zero labels have no pairs): the naturals
-    #   never-expand guarantee is untouched. Compress-time only (the RL
-    #   reward never runs it).
+    #   never-expand guarantee is untouched, and a merged slicing still
+    #   passes the writer's never-expand guard (compress_fallback above).
+    #   Compress-time only (the RL reward never runs it).
     fallback_margin: float = 1.0  # keep iff est_sliced < margin *
     #   min(est_whole, original bytes). Round 3 needed a global 0.9 fudge
     #   because the parity estimator under-priced small crops

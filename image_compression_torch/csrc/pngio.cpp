@@ -346,11 +346,16 @@ int pngio_decode(const uint8_t* data, size_t len, uint8_t* out, int* height,
 // vectorized bbox pass instead of per-label O(K*H*W) scans. pack=1: ONE
 // container file at out_path holding the identical bytes (the "SLPK"
 // format of io/pack.py) — one file create instead of K+1, the host-side
-// lever bench_host_scaling.py identified. Returns the number of slices
-// written, or -1 on error.
+// lever bench_host_scaling.py identified. *bytes_out (when given) gets the
+// bytes the output takes (slices + metadata.bin, or the pack file). With
+// max_bytes >= 0 and more bytes than that, the result is -2 and nothing is
+// left written: a pack is never opened, and slice files written as they
+// were encoded are removed (the compress writer's never-expand guard).
+// Returns the number of slices written, or -1 on error.
 static int write_slices_impl(const uint8_t* img_rgba, const int32_t* labels,
                              int height, int width, const char* out_path,
-                             int level, int n_threads, int pack) {
+                             int level, int n_threads, int pack,
+                             long long max_bytes, long long* bytes_out) {
     if (!img_rgba || !labels || !out_path) return -1;
 
     // one RUN-based pass: bbox + pixel count per label. Label maps are
@@ -402,6 +407,7 @@ static int write_slices_impl(const uint8_t* img_rgba, const int32_t* labels,
     if (pack) blobs.resize(present.size());
     std::atomic<size_t> next{0};
     std::atomic<bool> ok{true};
+    std::atomic<long long> png_bytes{0};
 
     auto worker = [&]() {
         std::vector<uint8_t> crop;
@@ -481,6 +487,7 @@ static int write_slices_impl(const uint8_t* img_rgba, const int32_t* labels,
             }
             std::string fname =
                 "slice_" + std::to_string(lab) + ".png";
+            png_bytes += (long long)png_len;
             if (pack) {
                 blobs[i].assign(png, png + png_len);
             } else {
@@ -518,6 +525,17 @@ static int write_slices_impl(const uint8_t* img_rgba, const int32_t* labels,
                     m.filename.data() + flen);
     }
 
+    const long long total = (long long)meta.size() + png_bytes +
+                            (pack ? 16 + 8 * (long long)blobs.size() : 0);
+    if (bytes_out) *bytes_out = total;
+    if (max_bytes >= 0 && total > max_bytes) {
+        if (!pack)
+            for (const auto& m : metas)
+                std::remove((std::string(out_path) + "/" + m.filename)
+                                .c_str());
+        return -2;
+    }
+
     if (!pack) {
         std::string mpath = std::string(out_path) + "/metadata.bin";
         FILE* f = std::fopen(mpath.c_str(), "wb");
@@ -552,9 +570,10 @@ static int write_slices_impl(const uint8_t* img_rgba, const int32_t* labels,
 
 int pngio_write_slices(const uint8_t* img_rgba, const int32_t* labels,
                        int height, int width, const char* out_dir,
-                       int level, int n_threads) {
+                       int level, int n_threads, long long max_bytes,
+                       long long* bytes_out) {
     return write_slices_impl(img_rgba, labels, height, width, out_dir, level,
-                             n_threads, 0);
+                             n_threads, 0, max_bytes, bytes_out);
 }
 
 // Reconstruct the pixel label map from bit-packed inter-pixel connectivity
@@ -615,19 +634,21 @@ int pngio_labels_from_conn(const uint8_t* hbits, const uint8_t* vbits,
 int pngio_write_slices_conn(const uint8_t* img_rgba, const uint8_t* hbits,
                             const uint8_t* vbits, int height, int width,
                             const char* out_path, int level, int n_threads,
-                            int pack) {
+                            int pack, long long max_bytes,
+                            long long* bytes_out) {
     std::vector<int32_t> labels((size_t)height * width);
     if (pngio_labels_from_conn(hbits, vbits, height, width, labels.data()))
         return -1;
     return write_slices_impl(img_rgba, labels.data(), height, width, out_path,
-                             level, n_threads, pack);
+                             level, n_threads, pack, max_bytes, bytes_out);
 }
 
 int pngio_write_slices_pack(const uint8_t* img_rgba, const int32_t* labels,
                             int height, int width, const char* pack_path,
-                            int level, int n_threads) {
+                            int level, int n_threads, long long max_bytes,
+                            long long* bytes_out) {
     return write_slices_impl(img_rgba, labels, height, width, pack_path,
-                             level, n_threads, 1);
+                             level, n_threads, 1, max_bytes, bytes_out);
 }
 
 }  // extern "C"

@@ -40,13 +40,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.pngio_free.restype = None
     lib.pngio_write_slices.argtypes = [
         _U8P, ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
-        ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.pngio_write_slices.restype = ctypes.c_int
     lib.pngio_write_slices_pack.argtypes = lib.pngio_write_slices.argtypes
     lib.pngio_write_slices_pack.restype = ctypes.c_int
     lib.pngio_write_slices_conn.argtypes = [
         _U8P, _U8P, _U8P, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_longlong)]
     lib.pngio_write_slices_conn.restype = ctypes.c_int
     lib.pngio_labels_from_conn.argtypes = [
         _U8P, _U8P, ctypes.c_int, ctypes.c_int,
@@ -144,12 +146,25 @@ def decode_png(data: bytes) -> np.ndarray | None:
     return out
 
 
+def _written(rc: int, total: ctypes.c_longlong, out_path) -> int | None:
+    """A native slice write's result: the bytes it wrote, None where they
+    would have exceeded max_bytes (nothing written); OSError on failure."""
+    if rc == -2:
+        return None
+    if rc < 0:
+        raise OSError(f"pngio_write_slices failed for {out_path}")
+    return total.value
+
+
 def write_slices_native(image_rgba_u8: np.ndarray, labels_hw: np.ndarray,
                         out_path: str | pathlib.Path, level: int = 4,
-                        n_threads: int = 0, pack: bool = False) -> int:
-    """Parallel native slicer; returns the number of slices written. pack
-    writes one SLPK file at out_path (io/pack.py) instead of a directory
-    of slice PNGs + metadata.bin."""
+                        n_threads: int = 0, pack: bool = False,
+                        max_bytes: int | None = None) -> int | None:
+    """Parallel native slicer; returns the bytes written (slice PNGs +
+    metadata.bin, or the pack). pack writes one SLPK file at out_path
+    (io/pack.py) instead of a directory of slice PNGs + metadata.bin. With
+    max_bytes, an output that would take more bytes is not written, and
+    the result is None."""
     lib = _require()
     img = np.ascontiguousarray(image_rgba_u8, np.uint8)
     labels = np.ascontiguousarray(labels_hw, np.int32)
@@ -157,12 +172,12 @@ def write_slices_native(image_rgba_u8: np.ndarray, labels_hw: np.ndarray,
     if img.shape != (h, w, 4):
         raise ValueError(f"image {img.shape} does not match labels {h}x{w}")
     fn = lib.pngio_write_slices_pack if pack else lib.pngio_write_slices
+    total = ctypes.c_longlong(0)
     rc = fn(img.ctypes.data_as(_U8P),
             labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), h, w,
-            str(out_path).encode(), level, n_threads)
-    if rc < 0:
-        raise OSError(f"pngio_write_slices failed for {out_path}")
-    return rc
+            str(out_path).encode(), level, n_threads,
+            -1 if max_bytes is None else max_bytes, ctypes.byref(total))
+    return _written(rc, total, out_path)
 
 
 def _conn_planes(hbits: np.ndarray, vbits: np.ndarray, height: int,
@@ -195,19 +210,21 @@ def labels_from_conn_native(hbits: np.ndarray, vbits: np.ndarray,
 def write_slices_conn_native(image_rgba_u8: np.ndarray, hbits: np.ndarray,
                              vbits: np.ndarray, out_path: str | pathlib.Path,
                              level: int = 4, n_threads: int = 0,
-                             pack: bool = False) -> int:
+                             pack: bool = False,
+                             max_bytes: int | None = None) -> int | None:
     """Labels from packed connectivity planes (union-find, smallest pixel
-    index per region) and the parallel slicer in one native call."""
+    index per region) and the parallel slicer in one native call; the
+    result as write_slices_native's."""
     lib = _require()
     img = np.ascontiguousarray(image_rgba_u8, np.uint8)
     h, w = img.shape[:2]
     if img.shape != (h, w, 4):
         raise ValueError(f"image {img.shape}: expected RGBA")
     hb, vb = _conn_planes(hbits, vbits, h, w)
+    total = ctypes.c_longlong(0)
     rc = lib.pngio_write_slices_conn(
         img.ctypes.data_as(_U8P), hb.ctypes.data_as(_U8P),
         vb.ctypes.data_as(_U8P), h, w, str(out_path).encode(), level,
-        n_threads, 1 if pack else 0)
-    if rc < 0:
-        raise OSError(f"pngio_write_slices_conn failed for {out_path}")
-    return rc
+        n_threads, 1 if pack else 0,
+        -1 if max_bytes is None else max_bytes, ctypes.byref(total))
+    return _written(rc, total, out_path)

@@ -31,6 +31,13 @@ _U32 = struct.Struct("<I")
 _U64 = struct.Struct("<Q")
 
 
+def pack_bytes(meta_len: int, blob_lens: list[int]) -> int:
+    """Size of a pack holding a metadata payload of meta_len bytes and
+    PNGs of blob_lens bytes."""
+    return (len(MAGIC) + _U32.size + _U64.size + meta_len
+            + sum(_U64.size + n for n in blob_lens))
+
+
 def write_pack(path: str | pathlib.Path, records: list[SliceMetadata],
                blobs: list[bytes], image_width: int,
                image_height: int) -> None:

@@ -24,8 +24,8 @@ from scipy import ndimage
 from image_compression_torch.io import native, pypng
 from image_compression_torch.io.image_io import ensure_rgba
 from image_compression_torch.io.metadata import (SliceMetadata,
-                                                 write_metadata_binary)
-from image_compression_torch.io.pack import write_pack
+                                                 encode_metadata)
+from image_compression_torch.io.pack import pack_bytes, write_pack
 from image_compression_torch.ops.labels_wire import labels_from_connectivity
 
 
@@ -91,9 +91,12 @@ def write_slices(image_hwc: np.ndarray, labels_hw: np.ndarray,
                  image_format: str = "png", compression_level: int = 4,
                  max_workers: int | None = None,
                  use_native: bool | None = None,
-                 container: str = "files") -> bool:
+                 container: str = "files",
+                 max_bytes: int | None = None) -> int | None:
     """Write one PNG per segment plus metadata.bin (or one pack); returns
-    True, and raises OSError if a file cannot be written. Only "png" keeps
+    the bytes written, and raises OSError if a file cannot be written. With
+    max_bytes, an output that takes more bytes is not left written (its
+    directory stays empty, no pack is made) and the result is None. Only "png" keeps
     the round trip lossless, so any other image_format raises.
     use_native=None takes the native writer when it is built; True
     requires it; False never uses it."""
@@ -108,10 +111,9 @@ def write_slices(image_hwc: np.ndarray, labels_hw: np.ndarray,
     h_img, w_img = labels_hw.shape
     if _use_native(image_rgba, use_native) and labels_hw.min() >= 0 and \
             labels_hw.max() < np.iinfo(np.int32).max:
-        native.write_slices_native(image_rgba, labels_hw, out,
-                                   compression_level, max_workers or 0,
-                                   pack=pack)
-        return True
+        return native.write_slices_native(image_rgba, labels_hw, out,
+                                          compression_level, max_workers or 0,
+                                          pack=pack, max_bytes=max_bytes)
     boxes = compute_bounding_boxes(labels_hw)
 
     def encode_one(label: int) -> tuple[SliceMetadata, bytes]:
@@ -127,13 +129,19 @@ def write_slices(image_hwc: np.ndarray, labels_hw: np.ndarray,
     with concurrent.futures.ThreadPoolExecutor(workers) as pool:
         results = list(pool.map(encode_one, sorted(boxes)))
     metas = [meta for meta, _ in results]
+    blobs = [data for _, data in results]
+    meta_bytes = encode_metadata(metas, w_img, h_img)
+    total = (pack_bytes(len(meta_bytes), [len(b) for b in blobs]) if pack
+             else len(meta_bytes) + sum(len(b) for b in blobs))
+    if max_bytes is not None and total > max_bytes:
+        return None
     if pack:
-        write_pack(out, metas, [data for _, data in results], w_img, h_img)
+        write_pack(out, metas, blobs, w_img, h_img)
     else:
         for meta, data in results:
             (out / meta.filename).write_bytes(data)
-        write_metadata_binary(metas, out / "metadata.bin", w_img, h_img)
-    return True
+        (out / "metadata.bin").write_bytes(meta_bytes)
+    return total
 
 
 def write_slices_from_conn(image_hwc: np.ndarray, hbits: np.ndarray,
@@ -144,24 +152,25 @@ def write_slices_from_conn(image_hwc: np.ndarray, hbits: np.ndarray,
                            compression_level: int = 4,
                            max_workers: int | None = None,
                            use_native: bool | None = None,
-                           container: str = "files") -> bool:
+                           container: str = "files",
+                           max_bytes: int | None = None) -> int | None:
     """write_slices from the bit-packed connectivity planes of
-    ops/labels_wire.py. The native writer rebuilds the labels and slices
-    in one call; otherwise labels come from connected components (both give
-    each region its smallest pixel index)."""
+    ops/labels_wire.py (its result and max_bytes as write_slices'). The
+    native writer rebuilds the labels and slices in one call; otherwise
+    labels come from connected components (both give each region its
+    smallest pixel index)."""
     if image_format != "png":
         raise ValueError("write_slices_from_conn supports only 'png'")
     image_rgba = ensure_rgba(np.asarray(image_hwc))
     h_img, w_img = image_rgba.shape[:2]
     if _use_native(image_rgba, use_native):
-        native.write_slices_conn_native(
+        return native.write_slices_conn_native(
             image_rgba, hbits, vbits,
             _target(output_path, file_directory_name, container),
             compression_level, max_workers or 0,
-            pack=container == "pack")
-        return True
+            pack=container == "pack", max_bytes=max_bytes)
     labels = labels_from_connectivity(np.asarray(hbits), np.asarray(vbits),
                                       h_img, w_img)
     return write_slices(image_hwc, labels.astype(np.int64), output_path,
                         file_directory_name, image_format, compression_level,
-                        max_workers, False, container)
+                        max_workers, False, container, max_bytes)

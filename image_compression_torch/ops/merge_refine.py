@@ -19,7 +19,8 @@ from image_compression_torch.ops.png_estimator import (
     class_sizes_for, estimate_segment_png_sizes_fast)
 from image_compression_torch.ops.rewards import to_rgba_u8
 from image_compression_torch.ops.segment_stats import segment_stats
-from image_compression_torch.utils.profiling import count, span, tracing
+from image_compression_torch.utils.profiling import (count, count_device,
+                                                     span, tracing)
 
 
 def _pair_counts(left: torch.Tensor, right: torch.Tensor,
@@ -149,6 +150,8 @@ def _merge_round(img_rgba: torch.Tensor, labels: torch.Tensor, *, k_max: int,
     order_save, order = _sort_desc(torch.cat(cand_save, dim=1))
     pa_o, pb_o = pa.gather(1, order), pb.gather(1, order)
     do_merge = _greedy_disjoint(order_save, pa_o, pb_o, k_max)
+    if tracing():
+        count_device("merge.pairs", do_merge.sum())
 
     # apply: pixels of slot b take slot a's label (the smaller one: slot ids
     # ascend with label values)
@@ -187,7 +190,8 @@ def merge_refine_batch(images_f01: torch.Tensor, labels_bhw: torch.Tensor, *,
     the rounds, as a sub-batch written back into a copy of the labels; a
     batch of one-region images comes back as it is. Deciding costs one
     sync. Traced, the images passed over are counted as
-    "merge.noop_images"."""
+    "merge.noop_images", and the pairs each round merges as "merge.pairs"
+    (on the device, no sync)."""
     b = labels_bhw.shape[0]
     flat = labels_bhw.flatten(1)
     multi = (flat != flat[:, :1]).any(dim=1)

@@ -12,10 +12,21 @@ partition and merge refinement only on the kept slicings (a declined image
 is all-zero labels, a no-op there). `compress_directory` overlaps the two
 halves as the reference does: batch i is sliced and written in a worker
 thread while batch i + 1's device half runs.
+
+Never-expand guard (a product departure: the reference only predicts that
+a kept slicing is smaller). With the fallback on and a source file to copy,
+the writer gives the slice writer the passthrough's size (the source's
+bytes plus a one-slice metadata.bin, 49 bytes; in a pack also the pack's
+framing) as a byte budget: a kept slicing over it is not left written, and
+the passthrough is written instead. It reads only host data: no kernel, no
+device sync. Declined images never reach it, and where it does not fire the
+bytes are those of the reference.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import pathlib
 import shutil
 import time
@@ -31,7 +42,7 @@ from image_compression_torch.io.image_io import (find_image_files_recursively,
                                                  load_image, to_float01_rgb)
 from image_compression_torch.io.metadata import (SliceMetadata,
                                                  write_metadata_binary)
-from image_compression_torch.io.pack import write_pack
+from image_compression_torch.io.pack import pack_bytes, write_pack
 from image_compression_torch.io.slicer import write_slices_from_conn
 from image_compression_torch.models.unet import EdgeUNet
 from image_compression_torch.ops.edges import (edge_validity_masks,
@@ -41,14 +52,17 @@ from image_compression_torch.ops.merge_refine import merge_refine_batch
 from image_compression_torch.ops.multicut import multicut_grid
 from image_compression_torch.ops.rewards import estimated_total_sizes_batched
 from image_compression_torch.ops.targets import compute_edge_costs
-from image_compression_torch.utils.profiling import StageClock, span
+from image_compression_torch.utils.profiling import StageClock, count, span
 
 
 def classical_costs_signed(images: torch.Tensor,
                            target: EdgeTarget) -> torch.Tensor:
     """Classical {0, 1} connect/cut planes -> signed multicut costs
-    {-1, +1} with padding masked to 0 (the checkpoint-free compress path)."""
-    costs01 = compute_edge_costs(images, target)
+    {-1, +1} with padding masked to 0 (the checkpoint-free compress path).
+    Traced, the GRAPH extractor is the span "graph"."""
+    with (span("graph", images.device) if target is EdgeTarget.GRAPH
+          else contextlib.nullcontext()):
+        costs01 = compute_edge_costs(images, target)
     height, width = costs01.shape[-3], costs01.shape[-2]
     return (2.0 * costs01 - 1.0) * edge_validity_masks(
         height, width, device=costs01.device)
@@ -157,6 +171,11 @@ def _pack_wire(labels: torch.Tensor):
     return hbits.cpu().numpy(), vbits.cpu().numpy(), single.cpu().numpy()
 
 
+# metadata.bin of one slice: the 16-byte header, one 22-byte entry and the
+# 11-byte name "slice_0.png"
+ONE_SLICE_RECORD = 16 + 22 + 11
+
+
 def write_passthrough(src_path: str | pathlib.Path,
                       shape_hw: tuple[int, int],
                       results_dir: str | pathlib.Path, name: str,
@@ -180,31 +199,51 @@ def write_passthrough(src_path: str | pathlib.Path,
     return out
 
 
+def _passthrough_bytes(src: str | pathlib.Path, container: str) -> int:
+    """Bytes write_passthrough writes for the source file `src`."""
+    src_bytes = os.stat(src).st_size
+    if container == "pack":
+        return pack_bytes(ONE_SLICE_RECORD, [src_bytes])
+    return src_bytes + ONE_SLICE_RECORD
+
+
 def _write_batch(images_u8: list[np.ndarray], wire, cfg: Config,
                  results_dir: str | pathlib.Path, names: list[str | None],
                  src_paths: list | None = None) -> list[pathlib.Path]:
     """Host half of compress for one batch: slice + write from the wire
-    into cfg.slice_container ("files" or "pack"). With src_paths, a
-    fallen-back image copies its source PNG instead of re-encoding it.
-    Returns each image's slice directory or pack file; a failed write
-    raises OSError."""
+    into cfg.slice_container ("files" or "pack"). With src_paths and the
+    fallback on, a fallen-back image copies its source PNG instead of
+    re-encoding it, and so does a kept slicing that would write more bytes
+    than that copy (the never-expand guard, module docstring). Returns
+    each image's slice directory or pack file; a failed write raises
+    OSError. Counts "compress.kept_images" (the batch's slicings the
+    fallback kept) and "compress.guard_rewrites"."""
     hbits, vbits, single = wire
     pack = cfg.slice_container == "pack"
     out_dirs = []
+    kept = rewrites = 0
     for i, (img, name) in enumerate(zip(images_u8, names)):
         if name is None:  # batch padding entry
             continue
-        src = src_paths[i] if src_paths else None
-        if src is not None and cfg.compress_fallback and single[i]:
-            out_dirs.append(write_passthrough(
-                src, img.shape[:2], results_dir, name,
-                container=cfg.slice_container))
-            continue
-        write_slices_from_conn(img, hbits[i], vbits[i], results_dir, name,
-                               cfg.image_format, cfg.compression_level,
-                               container=cfg.slice_container)
-        out_dirs.append(pathlib.Path(results_dir)
-                        / (f"{name}.pack" if pack else name))
+        kept += not single[i]
+        src = src_paths[i] if src_paths and cfg.compress_fallback else None
+        if src is None or not single[i]:
+            budget = (_passthrough_bytes(src, cfg.slice_container)
+                      if src is not None else None)
+            if write_slices_from_conn(
+                    img, hbits[i], vbits[i], results_dir, name,
+                    cfg.image_format, cfg.compression_level,
+                    container=cfg.slice_container,
+                    max_bytes=budget) is not None:
+                out_dirs.append(pathlib.Path(results_dir)
+                                / (f"{name}.pack" if pack else name))
+                continue
+            rewrites += 1  # over the passthrough: nothing was written
+        out_dirs.append(write_passthrough(src, img.shape[:2], results_dir,
+                                          name,
+                                          container=cfg.slice_container))
+    count("compress.kept_images", kept)
+    count("compress.guard_rewrites", rewrites)
     return out_dirs
 
 

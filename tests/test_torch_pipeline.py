@@ -371,3 +371,75 @@ def test_write_failure_raises_in_the_caller(classical_runs, tmp_path):
     cfg = Config(dataset_dir=str(data), results_dir=str(blocker))
     with pytest.raises(OSError):
         tp.compress_directory(cfg, batch_size=2, device="cpu")
+
+
+def _written(out):
+    """Bytes of one image's output (its pack, or its directory's files)."""
+    if out.is_file():
+        return out.stat().st_size
+    return sum(f.stat().st_size for f in out.iterdir())
+
+
+@pytest.mark.parametrize("container", ["files", "pack"])
+def test_guard_rewrites_an_expanding_slicing(tmp_path, container):
+    """A kept slicing of noise halves writes more than its source (a level-9
+    PNG) plus a one-slice record: with the source at hand the writer
+    rewrites it as the passthrough, byte for byte what a declined image
+    writes, lossless, and counts one rewrite of one kept image."""
+    from image_compression_torch.io.pack import pack_bytes
+    from image_compression_torch.utils import profiling
+
+    img = np.random.default_rng(12).integers(0, 256, (H, W, 3), np.uint8)
+    src = tmp_path / "noise.png"
+    src.write_bytes(pypng.encode(img, 9))
+    halves = np.zeros((1, H, W), np.int64)
+    halves[:, :, 32:] = 1
+    wire = tp._pack_wire(torch.as_tensor(halves))
+    assert not wire[2][0]  # kept
+    cfg = Config(slice_container=container)
+    sliced = tp._write_batch([img], wire, cfg, tmp_path / "sliced",
+                             ["noise"])[0]
+    bound = (pack_bytes(tp.ONE_SLICE_RECORD, [src.stat().st_size])
+             if container == "pack"
+             else src.stat().st_size + tp.ONE_SLICE_RECORD)
+    assert _written(sliced) > bound
+    profiling.reset()
+    out = tp._write_batch([img], wire, cfg, tmp_path / "guarded", ["noise"],
+                          src_paths=[src])[0]
+    passthrough = tp.write_passthrough(src, (H, W), tmp_path / "declined",
+                                       "noise", container=container)
+    assert _written(out) == _written(passthrough) == bound
+    if container == "files":
+        _assert_same_files(out, passthrough)
+    else:
+        assert out.read_bytes() == passthrough.read_bytes()
+    np.testing.assert_array_equal(reassemble_array(out), ensure_rgba(img))
+    assert profiling.counters() == {"compress.kept_images": 1,
+                                    "compress.guard_rewrites": 1}
+    profiling.reset()
+
+
+def test_guard_keeps_a_fitting_slicing_as_the_reference_writes_it(runs,
+                                                                   tmp_path):
+    """The four-quadrant image's kept (and merged) slicing fits under its
+    source plus a one-slice record: with the source at hand the writer
+    keeps it, byte-equal to the JAX package's writer, and counts no
+    rewrite."""
+    from image_compression_torch.utils import profiling
+
+    images, j_wire, t_wire, _, _ = runs
+    src = tmp_path / "quads.png"
+    src.write_bytes(pypng.encode(images[4]))
+    one = [images[4]]
+    jcfg = JConfig()
+    jd = jp._write_batch(one, [w[4:] for w in j_wire], jcfg, tmp_path / "j",
+                         ["quads"], src_paths=[src])[0]
+    profiling.reset()
+    td = tp._write_batch(one, [w[4:] for w in t_wire], Config(),
+                         tmp_path / "t", ["quads"], src_paths=[src])[0]
+    assert len(list(td.glob("slice_*.png"))) == 3
+    assert _written(td) <= src.stat().st_size + tp.ONE_SLICE_RECORD
+    _assert_same_files(td, jd)
+    assert profiling.counters() == {"compress.kept_images": 1,
+                                    "compress.guard_rewrites": 0}
+    profiling.reset()

@@ -139,3 +139,33 @@ def test_pack_reassembles_and_unpacks(tmp_path):
     for name in loose:
         assert (tmp_path / "unpacked" / name).read_bytes() == \
             (tmp_path / "loose" / name).read_bytes()
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+@pytest.mark.parametrize("container", ["files", "pack"])
+def test_max_bytes_writes_all_or_nothing(tmp_path, use_native, container):
+    """Both writers return the bytes they wrote (the slice files and
+    metadata.bin, or the pack); with max_bytes one byte under that they
+    write nothing and return None, and at exactly that they write the same
+    bytes (the compress writer's never-expand guard)."""
+    img, hb, vb = _labelled_wire()
+
+    def written(root):
+        out = root / ("im.pack" if container == "pack" else "im")
+        if not out.exists():
+            return {}
+        files = [out] if out.is_file() else sorted(out.iterdir())
+        return {f.name: f.read_bytes() for f in files}
+
+    total = write_slices_from_conn(img, hb, vb, tmp_path / "a", "im",
+                                   container=container, use_native=use_native)
+    files = written(tmp_path / "a")
+    assert total == sum(len(b) for b in files.values()) > 0
+    assert write_slices_from_conn(
+        img, hb, vb, tmp_path / "b", "im", container=container,
+        use_native=use_native, max_bytes=total - 1) is None
+    assert written(tmp_path / "b") == {}
+    assert write_slices_from_conn(
+        img, hb, vb, tmp_path / "c", "im", container=container,
+        use_native=use_native, max_bytes=total) == total
+    assert written(tmp_path / "c") == files

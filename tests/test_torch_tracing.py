@@ -7,6 +7,8 @@ without one. This file imports no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_tracing.py
 """
 
+import collections
+import contextlib
 import json
 import threading
 
@@ -17,6 +19,8 @@ import torch
 from image_compression_torch import pipeline
 from image_compression_torch.config import Config, EdgeTarget
 from image_compression_torch.io import pypng
+from image_compression_torch.ops import graph_based, graph_based_hier
+from image_compression_torch.ops import merge_refine
 from image_compression_torch.utils import profiling
 from image_compression_torch.utils.profiling import (count, count_device,
                                                      counters, device_trace,
@@ -195,6 +199,98 @@ def test_declined_batch_skips_merge(tmp_path, monkeypatch):
     assert "merge.greedy" not in {r["name"] for r in records()}
 
 
+def test_graph_compress_counters(tmp_path, monkeypatch):
+    """A traced GRAPH compress records the span "graph" under each batch's
+    "costs" and the counters graph.rounds, compress.kept_images,
+    compress.guard_rewrites and merge.pairs: the kept images are those
+    written as several slices or rewritten by the guard, and the pairs
+    merged are the regions that merge refinement took away."""
+    merged = []
+    merge = pipeline.merge_refine_batch
+
+    def regions(labels):
+        return sum(len(torch.unique(im)) for im in labels)
+
+    def counted_merge(images, labels, **kw):
+        out = merge(images, labels, **kw)
+        merged.append(regions(labels) - regions(out))
+        return out
+
+    monkeypatch.setattr(pipeline, "merge_refine_batch", counted_merge)
+    cfg = Config(dataset_dir=str(_corpus(tmp_path / "data")),
+                 results_dir=str(tmp_path / "out"))
+    with device_trace(tmp_path / "trace"):
+        dirs = pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                           batch_size=2, device="cpu")
+    snap = snapshot()
+    assert snap["spans"]["graph"]["count"] == 3
+    assert {r["parent"] for r in records() if r["name"] == "graph"} == {
+        "costs"}
+    got = snap["counters"]
+    sliced = sum(len(list(d.glob("slice_*.png"))) > 1 for d in dirs)
+    assert sliced >= 1
+    assert got["compress.kept_images"] == sliced + got[
+        "compress.guard_rewrites"]
+    assert got["merge.pairs"] == sum(merged) > 0
+    # 256-pixel-wide levels and the absorption: at least one round each
+    assert got["graph.rounds"] >= 3 * 3
+
+
+# tensor calls that wait for the device when their tensor lives on a card
+SYNCING = {"item", "__bool__", "__int__", "__float__", "__index__", "tolist",
+           "numpy", "cpu", "equal", "nonzero"}
+
+
+class _SyncingCalls(torch.overrides.TorchFunctionMode):
+    """Counts each call of SYNCING against every span open in its thread,
+    as the program's sync count adds a span's syncs into its parents'."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = collections.Counter()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", "") in SYNCING:
+            self.calls.update({s.name for s in profiling._stack()})
+        return func(*args, **(kwargs or {}))
+
+
+def _without_new_instrumentation(monkeypatch):
+    """The graph span and the counters graph.rounds, compress.kept_images,
+    compress.guard_rewrites and merge.pairs made no-ops."""
+    def no_count(*_args):
+        return None
+
+    for module in (pipeline, graph_based, graph_based_hier):
+        monkeypatch.setattr(module, "count", no_count)
+    monkeypatch.setattr(merge_refine, "count_device", no_count)
+    traced = pipeline.span
+    monkeypatch.setattr(pipeline, "span", lambda name, *a, **k: (
+        contextlib.nullcontext() if name == "graph"
+        else traced(name, *a, **k)))
+
+
+def test_graph_instrumentation_adds_no_sync(tmp_path, monkeypatch):
+    """The graph span and the four counters add no call that waits for the
+    device to any span: each span's count of such calls in a traced GRAPH
+    compress is the same with them and without them."""
+    data = _corpus(tmp_path / "data")
+
+    def syncing_calls(tag):
+        cfg = Config(dataset_dir=str(data),
+                     results_dir=str(tmp_path / tag))
+        with _SyncingCalls() as mode, device_trace(tmp_path / f"t{tag}"):
+            pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                        batch_size=2, device="cpu")
+        return mode.calls
+
+    live = syncing_calls("live")
+    _without_new_instrumentation(monkeypatch)
+    bare = syncing_calls("bare")
+    assert live.pop("graph") > 0
+    assert live == bare and live["costs"] > 0 and live["merge"] > 0
+
+
 def test_rl_step_spans(tmp_path):
     """A tiny REINFORCE step records sample, multicut and reward under
     solve_reward, the three stages under rl.step, all with the step's id."""
@@ -246,3 +342,29 @@ def test_syncs_and_device_time_on_card(cuda, tmp_path):
     assert spans["step"]["syncs"] == 1
     assert all(s["device_s"] is not None and s["device_s"] >= 0
                for s in spans.values())
+
+
+@pytest.mark.cuda
+def test_graph_instrumentation_adds_no_sync_on_card(cuda, tmp_path,
+                                                    monkeypatch):
+    """On a card: each span's count of syncs in a traced GRAPH compress is
+    the same with the graph span and the four counters and without them;
+    the graph span counts the FH rounds' fixpoint tests."""
+    data = _corpus(tmp_path / "data")
+
+    def syncs(tag):
+        cfg = Config(dataset_dir=str(data),
+                     results_dir=str(tmp_path / tag))
+        with device_trace(tmp_path / f"t{tag}"):
+            pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                        batch_size=2, device=cuda)
+        return {name: s["syncs"] for name, s in snapshot()["spans"].items()}
+
+    pipeline.compress_directory(
+        Config(dataset_dir=str(data), results_dir=str(tmp_path / "warm")),
+        classical=EdgeTarget.GRAPH, batch_size=2, device=cuda)
+    live = syncs("live")
+    _without_new_instrumentation(monkeypatch)
+    bare = syncs("bare")
+    assert live.pop("graph") > 0
+    assert live == bare
