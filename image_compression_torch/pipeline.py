@@ -52,7 +52,8 @@ from image_compression_torch.ops.merge_refine import merge_refine_batch
 from image_compression_torch.ops.multicut import multicut_grid
 from image_compression_torch.ops.rewards import estimated_total_sizes_batched
 from image_compression_torch.ops.targets import compute_edge_costs
-from image_compression_torch.utils.profiling import StageClock, count, span
+from image_compression_torch.utils.profiling import (StageClock, count, span,
+                                                     tracing)
 
 
 def classical_costs_signed(images: torch.Tensor,
@@ -287,6 +288,20 @@ def _timed_write(*args, batch: int | None = None,
     return out, time.perf_counter() - t0
 
 
+def _decoders(batch_size: int) -> int:
+    """Width of compress_directory's decode pool: the batch size, at most the
+    CPUs this process may run on."""
+    cpus = (len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity")
+            else os.cpu_count() or 1)
+    return min(batch_size, cpus)
+
+
+def _decode(path: pathlib.Path, batch: int) -> np.ndarray:
+    """A decode thread's load_image of one image of batch number `batch`."""
+    with span("load.decode", id=batch):
+        return load_image(path)
+
+
 def compress_directory(cfg: Config, model: EdgeUNet | None = None,
                        limit: int | None = None,
                        classical: EdgeTarget | None = None,
@@ -299,15 +314,21 @@ def compress_directory(cfg: Config, model: EdgeUNet | None = None,
     moved to `device`); otherwise the `classical` extractor's, CANNY when
     none is named. Images are bucketed by shape and batched (trailing
     batches padded by repetition); a fallen-back image copies its source
-    PNG. Batch i is sliced and written in a worker thread while batch
-    i + 1's device half runs; the outputs are those of a serial run, and a
-    write failure raises here. With `timings`, per-stage seconds are added
-    into it: the device stages as in compress_arrays, "write" summed over
-    the worker's batches (it overlaps the device stages). Traced, each batch
-    is a span "compress.batch" (from its load through its wire, id = the
-    batch's number) holding "load" and the stages; "write_wait" is the
-    wait for the previous batch's write, "write" the write itself in the
-    worker's thread."""
+    PNG. A pool of decode threads (`_decoders` wide) decodes a batch's
+    PNGs in parallel, and batch i + 1's decodes are queued before batch i's
+    device half starts, so they run while it does: at most two batches are
+    decoded or in flight. Batch i is sliced and written in a worker thread
+    while batch i + 1's device half runs. The outputs are those of a serial
+    run, and a decode or write failure raises here, where the serial run
+    would have raised it. With `timings`, per-stage seconds are added into
+    it: the device stages as in compress_arrays, "write" summed over the
+    worker's batches (it overlaps the device stages). Traced, each batch is
+    a span "compress.batch" (from its load through its wire, id = the
+    batch's number) holding "load", the wait for its decoded images, and
+    the stages; "load.ready_images" counts the batch's images decoded
+    before that wait; "load.decode" is each decode in its thread;
+    "write_wait" is the wait for the previous batch's write, "write" the
+    write itself in the worker's thread."""
     dev = resolve_device(device)
     paths = find_image_files_recursively(cfg.dataset_dir, cfg.image_format)
     if limit:
@@ -327,15 +348,25 @@ def compress_directory(cfg: Config, model: EdgeUNet | None = None,
     by_shape: dict[tuple[int, int], list[pathlib.Path]] = {}
     for path in paths:
         by_shape.setdefault(image_dims(path), []).append(path)
+    batches = []  # (paths, padding entries) in the order they run
+    for _shape, group in sorted(by_shape.items()):
+        for i in range(0, len(group), batch_size):
+            chunk = group[i:i + batch_size]
+            batches.append((chunk, batch_size - len(chunk)
+                            if len(group) > batch_size else 0))
     clock = StageClock(timings, dev)
     out: list[pathlib.Path] = []
     pending = None  # the future of the previous batch's write
 
-    def device_half(number, chunk, pad):
-        """Batch `number`: its PNGs loaded and padded, and its wire."""
+    def device_half(number, chunk, decoded, pad):
+        """Batch `number`: its decoded PNGs taken and padded, and its
+        wire."""
         with span("compress.batch", dev, id=number):
             with span("load"):
-                imgs = [load_image(p) for p in chunk]
+                if tracing():
+                    count("load.ready_images",
+                          sum(f.done() for f in decoded))
+                imgs = [f.result() for f in decoded]  # re-raises a failure
             imgs += imgs[-1:] * pad
             sizes = [p.stat().st_size for p in chunk]
             sizes += sizes[-1:] * pad
@@ -352,21 +383,25 @@ def compress_directory(cfg: Config, model: EdgeUNet | None = None,
         if timings is not None:
             timings["write"] = timings.get("write", 0.0) + seconds
 
-    number = 0
-    with ThreadPoolExecutor(1) as pool:
-        for _shape, group in sorted(by_shape.items()):
-            for i in range(0, len(group), batch_size):
-                chunk = group[i:i + batch_size]
-                pad = batch_size - len(chunk) if len(group) > batch_size \
-                    else 0
-                imgs, wire = device_half(number, chunk, pad)
-                if pending is not None:
-                    collect(pending, number - 1)
-                pending = pool.submit(
-                    _timed_write, imgs, wire, cfg, cfg.results_dir,
-                    [p.stem for p in chunk] + [None] * pad,
-                    src_paths=list(chunk) + [None] * pad, batch=number)
-                number += 1
+    with ThreadPoolExecutor(_decoders(batch_size),
+                            thread_name_prefix="decode") as decoder, \
+            ThreadPoolExecutor(1) as pool:
+
+        def decode(number):
+            """Queue batch `number`'s decodes (none past the last batch)."""
+            chunk = batches[number][0] if number < len(batches) else []
+            return [decoder.submit(_decode, p, number) for p in chunk]
+
+        ahead = decode(0)
+        for number, (chunk, pad) in enumerate(batches):
+            decoded, ahead = ahead, decode(number + 1)
+            imgs, wire = device_half(number, chunk, decoded, pad)
+            if pending is not None:
+                collect(pending, number - 1)
+            pending = pool.submit(
+                _timed_write, imgs, wire, cfg, cfg.results_dir,
+                [p.stem for p in chunk] + [None] * pad,
+                src_paths=list(chunk) + [None] * pad, batch=number)
         if pending is not None:
-            collect(pending, number - 1)
+            collect(pending, len(batches) - 1)
     return out

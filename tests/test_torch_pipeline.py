@@ -11,6 +11,11 @@ sides' compress_directory end to end (canny and graph costs, slice files
 and packs), and a three-batch run, whose host and device halves overlap,
 against a one-batch run."""
 
+import pathlib
+import re
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -443,3 +448,102 @@ def test_guard_keeps_a_fitting_slicing_as_the_reference_writes_it(runs,
     assert profiling.counters() == {"compress.kept_images": 1,
                                     "compress.guard_rewrites": 0}
     profiling.reset()
+
+
+def _two_shapes(root):
+    """Three 32x48 PNGs (a0-a2) and five 64x64 (b0-b4), each of its own
+    noise and flat blocks: in batches of 2, two shape groups whose last
+    batches are padded. Returns {stem: image}."""
+    rng = np.random.default_rng(21)
+    root.mkdir()
+    images = {}
+    for prefix, (h, w), n in (("a", (32, 48), 3), ("b", (64, 64), 5)):
+        for i in range(n):
+            img = rng.integers(0, 256, (h, w, 3), np.uint8)
+            img[: h // 2, : w // 2] = rng.integers(0, 256, 3)
+            images[f"{prefix}{i}"] = img
+            (root / f"{prefix}{i}.png").write_bytes(pypng.encode(img))
+    return images
+
+
+# the batches compress_directory runs on _two_shapes at batch size 2, in
+# order: shape groups sorted, paths sorted within each, padded by repetition
+SERIAL_BATCHES = [["a0", "a1"], ["a2", "a2"], ["b0", "b1"], ["b2", "b3"],
+                  ["b4", "b4"]]
+
+
+def test_parallel_decode_keeps_the_serial_order(tmp_path, monkeypatch):
+    """Decodes made to finish out of order (each image sleeps longer the
+    earlier it comes) write the tree that in-order decodes write, byte for
+    byte and lossless, and the batches reach the device half in the serial
+    order, padding included."""
+    images = _two_shapes(tmp_path / "data")
+    order = [stem for batch in SERIAL_BATCHES for stem in dict.fromkeys(
+        batch)]
+    stem_of = {img.tobytes(): stem for stem, img in images.items()}
+    real_load, real_labels = tp.load_image, tp._device_labels
+
+    def run(tag, delay):
+        seen = []
+
+        def sleeping_load(path):
+            time.sleep(delay(order.index(pathlib.Path(path).stem)))
+            return real_load(path)
+
+        def recorded_labels(imgs, *args, **kwargs):
+            seen.append([stem_of[im.tobytes()] for im in imgs])
+            return real_labels(imgs, *args, **kwargs)
+
+        monkeypatch.setattr(tp, "load_image", sleeping_load)
+        monkeypatch.setattr(tp, "_device_labels", recorded_labels)
+        cfg = Config(dataset_dir=str(tmp_path / "data"),
+                     results_dir=str(tmp_path / tag))
+        dirs = tp.compress_directory(cfg, batch_size=2, device="cpu")
+        return dirs, seen
+
+    late, seen_late = run("late", lambda k: 0.03 * (len(order) - k))
+    prompt, seen_prompt = run("prompt", lambda k: 0.03 * k)
+    assert seen_late == seen_prompt == SERIAL_BATCHES
+    assert [d.name for d in late] == [d.name for d in prompt] == order
+    for ld, pd in zip(late, prompt):
+        _assert_same_files(ld, pd)
+        np.testing.assert_array_equal(reassemble_array(ld),
+                                      ensure_rgba(images[ld.name]))
+
+
+def test_decode_failure_raises_as_the_serial_run(tmp_path):
+    """A corrupt PNG (a sound header, garbled pixel data) in the second
+    batch raises from compress_directory what load_image raises on it, in
+    bounded time; the first batch is written, and no decode thread is left
+    running."""
+    images = _two_shapes(tmp_path / "data")
+    bad = tmp_path / "data" / "a2.png"
+    head = bad.read_bytes()[:33]  # signature and IHDR
+    bad.write_bytes(head + bytes(range(256)) * 4)
+    with pytest.raises(Exception) as serial:
+        load_image(bad)
+    cfg = Config(dataset_dir=str(tmp_path / "data"),
+                 results_dir=str(tmp_path / "out"))
+    raised = []
+
+    def call():
+        try:
+            tp.compress_directory(cfg, batch_size=2, device="cpu")
+        except Exception as e:  # noqa: BLE001 - compared below
+            raised.append(e)
+
+    caller = threading.Thread(target=call)
+    caller.start()
+    caller.join(timeout=120)
+    assert not caller.is_alive()
+    assert len(raised) == 1
+    assert type(raised[0]) is serial.type
+    # PIL names the buffer it read by its address
+    assert (re.sub("0x[0-9a-f]+", "0x", str(raised[0]))
+            == re.sub("0x[0-9a-f]+", "0x", str(serial.value)))
+    for stem in SERIAL_BATCHES[0]:
+        np.testing.assert_array_equal(
+            reassemble_array(tmp_path / "out" / stem),
+            ensure_rgba(images[stem]))
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("decode")]

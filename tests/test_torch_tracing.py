@@ -11,6 +11,7 @@ import collections
 import contextlib
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -248,10 +249,12 @@ class _SyncingCalls(torch.overrides.TorchFunctionMode):
     def __init__(self):
         super().__init__()
         self.calls = collections.Counter()
+        self.total = 0  # inside spans or not
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         if getattr(func, "__name__", "") in SYNCING:
             self.calls.update({s.name for s in profiling._stack()})
+            self.total += 1
         return func(*args, **(kwargs or {}))
 
 
@@ -289,6 +292,90 @@ def test_graph_instrumentation_adds_no_sync(tmp_path, monkeypatch):
     bare = syncing_calls("bare")
     assert live.pop("graph") > 0
     assert live == bare and live["costs"] > 0 and live["merge"] > 0
+
+
+def _graph_job(data, out, traced=True, mode=None, batch_size=2):
+    """A GRAPH compress of `data`, traced or not, inside the torch function
+    `mode` if one is given (which so sees none of the trace's own
+    calls)."""
+    cfg = Config(dataset_dir=str(data), results_dir=str(out))
+    with (device_trace(out.with_name(out.name + "_trace")) if traced
+          else contextlib.nullcontext()), (mode or contextlib.nullcontext()):
+        return pipeline.compress_directory(cfg, classical=EdgeTarget.GRAPH,
+                                           batch_size=batch_size,
+                                           device="cpu")
+
+
+def test_load_span_waits_on_the_main_thread(tmp_path):
+    """Traced, each batch's "load" (the wait for its decoded images) sits
+    under its compress.batch on the main thread, and each image's
+    "load.decode" runs on a decode thread, outside any span, with its
+    batch's id."""
+    _graph_job(_corpus(tmp_path / "data"), tmp_path / "out")
+    got = records()
+    main = {r["thread"] for r in got if r["name"] == "compress.batch"}
+    loads = [r for r in got if r["name"] == "load"]
+    assert len(main) == 1 and len(loads) == 3
+    assert {(r["thread"], r["parent"]) for r in loads} == {
+        (*main, "compress.batch")}
+    decodes = [r for r in got if r["name"] == "load.decode"]
+    assert sorted(r["id"] for r in decodes) == [0, 0, 1, 1, 2, 2]
+    assert {r["parent"] for r in decodes} == {None}
+    assert all(r["thread"].startswith("decode") for r in decodes)
+
+
+def test_ready_images_counted_only_while_traced(tmp_path, monkeypatch):
+    """Untraced, the decode pool records no span and counts nothing.
+    Traced, load.ready_images counts the batch's images decoded before
+    its wait: 0 for one batch of slow decodes (and still counted), the
+    later batches' images where the device half outlasts the decodes."""
+    data = _corpus(tmp_path / "data")
+    _graph_job(data, tmp_path / "off", traced=False)
+    assert records() == []
+    assert "load.ready_images" not in counters()
+
+    load, labels = pipeline.load_image, pipeline._device_labels
+
+    def slow_load(path):
+        time.sleep(0.4)
+        return load(path)
+
+    monkeypatch.setattr(pipeline, "load_image", slow_load)
+    _graph_job(data, tmp_path / "slow", batch_size=6)
+    assert snapshot()["counters"]["load.ready_images"] == 0
+
+    def slow_labels(*args, **kwargs):
+        time.sleep(0.3)
+        return labels(*args, **kwargs)
+
+    monkeypatch.setattr(pipeline, "load_image", load)
+    monkeypatch.setattr(pipeline, "_device_labels", slow_labels)
+    _graph_job(data, tmp_path / "fast")
+    assert 4 <= snapshot()["counters"]["load.ready_images"] <= 6
+
+
+def test_decode_pool_adds_no_sync(tmp_path, monkeypatch):
+    """The calls that wait for the device are those of the same job without
+    tracing, and per span those of a traced job without load.decode and
+    load.ready_images: the pool and its instrumentation add none."""
+    data = _corpus(tmp_path / "data")
+
+    def syncing_calls(tag, traced=True):
+        mode = _SyncingCalls()
+        _graph_job(data, tmp_path / tag, traced, mode)
+        return mode
+
+    live = syncing_calls("live")
+    untraced = syncing_calls("untraced", traced=False)
+    traced = pipeline.span
+    monkeypatch.setattr(pipeline, "tracing", lambda: False)
+    monkeypatch.setattr(pipeline, "span", lambda name, *a, **k: (
+        contextlib.nullcontext() if name == "load.decode"
+        else traced(name, *a, **k)))
+    bare = syncing_calls("bare")
+    assert live.total == untraced.total == bare.total > 0
+    assert live.calls == bare.calls and live.calls["costs"] > 0
+    assert "load.decode" not in live.calls
 
 
 def test_rl_step_spans(tmp_path):
