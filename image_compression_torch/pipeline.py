@@ -26,6 +26,7 @@ bytes are those of the reference.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import pathlib
 import shutil
@@ -122,14 +123,92 @@ def fallback_single_slice(images_f01: torch.Tensor, labels: torch.Tensor,
     return torch.where(keep[:, None, None], labels, 0)
 
 
+# the host dtype each image depth is stacked in: 8-bit as it is, 16-bit
+# widened to int32 (an index the gather takes), float32 as it is
+_HOST_DTYPES = {np.dtype(np.uint8): torch.uint8,
+                np.dtype(np.uint16): torch.int32,
+                np.dtype(np.float32): torch.float32}
+
+
+def _rgb(image_hwc: np.ndarray) -> np.ndarray:
+    """The pixels to_float01_rgb converts, unconverted: an HWC view with
+    alpha dropped, gray left as one channel (broadcast to three where it is
+    assigned). Raises what to_float01_rgb raises on other channel counts
+    and dtypes."""
+    arr = image_hwc if image_hwc.ndim == 3 else image_hwc[:, :, None]
+    c = arr.shape[2]
+    if c not in (1, 3, 4):
+        raise ValueError(f"unsupported channel count: {c}")
+    if arr.dtype not in _HOST_DTYPES:
+        raise ValueError(f"unsupported dtype: {arr.dtype}")
+    return arr[:, :, :3]
+
+
+@functools.cache
+def _float01_table(depth: np.dtype, device: torch.device) -> torch.Tensor:
+    """to_float01_rgb of every value of the integer dtype `depth` (256 or
+    65,536 entries), float32 on `device`: each entry is the host's
+    conversion of its value, bit for bit. One per depth and device, kept
+    for the life of the process."""
+    values = np.arange(np.iinfo(depth).max + 1, dtype=depth)
+    return torch.from_numpy(np.ascontiguousarray(
+        to_float01_rgb(values[None, :, None])[0, :, 0])).to(device)
+
+
+def _float01_stack(rgb: list[np.ndarray],
+                   device: torch.device) -> torch.Tensor:
+    """Equally sized images of one depth, as _rgb gives them -> float32
+    [B, H, W, 3] on `device`: stacked as they are on the host, in
+    page-locked memory for a CUDA device (the upload does not wait for
+    it), then, for an integer depth, gathered from its _float01_table on
+    the device."""
+    depth = rgb[0].dtype
+    host = torch.empty((len(rgb), *rgb[0].shape[:2], 3),
+                       dtype=_HOST_DTYPES[depth],
+                       pin_memory=device.type == "cuda")
+    stacked = host.numpy()
+    for i, im in enumerate(rgb):
+        stacked[i] = im
+    part = host.to(device, non_blocking=True)
+    if depth == np.float32:
+        return part
+    return _float01_table(depth, device).index_select(
+        0, part.int().view(-1)).view(part.shape)
+
+
+def _float01_batch(images: list[np.ndarray],
+                   device: torch.device) -> torch.Tensor:
+    """Equally sized images -> their float32 RGB batch [B, H, W, 3] on
+    `device`, bit for bit torch.as_tensor(np.stack([to_float01_rgb(im) for
+    im in images])): integer pixels become float32 on the device by a
+    gather from their depth's table, never by a division, so the values do
+    not depend on how the device divides (_float01_stack). A batch that
+    mixes depths converts each depth's images apart and puts them back in
+    their places."""
+    rgb = [_rgb(im) for im in images]
+    depths = {im.dtype for im in rgb}
+    if len(depths) == 1:
+        return _float01_stack(rgb, device)
+    batch = torch.empty((len(rgb), *rgb[0].shape[:2], 3),
+                        dtype=torch.float32, device=device)
+    for depth in depths:
+        members = [i for i, im in enumerate(rgb) if im.dtype == depth]
+        part = _float01_stack([rgb[i] for i in members], device)
+        for j, i in enumerate(members):
+            batch[i] = part[j]
+    return batch
+
+
 def _device_labels(images_u8: list[np.ndarray], cost_fn: Callable,
                    cfg: Config, device: torch.device, orig_sizes=None,
                    clock: StageClock | None = None) -> torch.Tensor:
-    """The device half of compress for one batch -> labels [B, H, W]."""
+    """The device half of compress for one batch -> labels [B, H, W].
+    Traced, the batch's preparation (_float01_batch) is the host span
+    "costs.input" inside "costs"."""
     clock = clock or StageClock(None, device)
     with clock.stage("costs"):
-        batch = torch.as_tensor(
-            np.stack([to_float01_rgb(im) for im in images_u8])).to(device)
+        with span("costs.input"):
+            batch = _float01_batch(images_u8, device)
         costs = cost_fn(batch)
     mc = cfg.multicut
     with clock.stage("solver"):

@@ -290,3 +290,38 @@ def test_flagship_compress_on_card_is_lossless(cuda, tmp_path):
                                       ensure_rgba(load_image(src)))
         size = sum(p.stat().st_size for p in out.iterdir())
         assert size <= src.stat().st_size + 49, out.name
+
+
+def _every_value(depth, channels):
+    """A square image holding every value of the integer `depth` in each
+    channel, each channel's values shifted against the last's; 2-D where
+    `channels` is 0."""
+    n = np.iinfo(depth).max + 1
+    side = int(np.sqrt(n))
+    values = np.arange(n, dtype=depth).reshape(side, side)
+    if not channels:
+        return values
+    return np.stack([np.roll(values, 7 * k) for k in range(channels)], axis=2)
+
+
+def test_float01_batch_on_card_equals_host_division(cuda):
+    """The compress batch made float32 on the card (integer pixels uploaded
+    from page-locked memory, then the depth's table gathered) is bit for
+    bit the host's to_float01_rgb on every 8- and 16-bit value, for each
+    channel layout and a batch mixing depths. The batches are built back
+    to back and compared only after the last, so a page-locked buffer
+    reused before its upload ended would show."""
+    from image_compression_torch.io.image_io import to_float01_rgb
+    from image_compression_torch.pipeline import _float01_batch
+    every8 = [np.tile(_every_value(np.uint8, c), (16, 16, 1))
+              if c else np.tile(_every_value(np.uint8, 0), (16, 16))
+              for c in (0, 1, 3, 4)]
+    every16 = [_every_value(np.uint16, c) for c in (0, 1, 3, 4)]
+    batches = [every8, every16, every8[::-1], [every8[2], every16[2],
+                                               every8[3], every16[1]]]
+    got = [_float01_batch(images, cuda) for images in batches]
+    for images, g in zip(batches, got):
+        want = torch.as_tensor(np.stack([to_float01_rgb(im)
+                                         for im in images]))
+        assert g.device.type == cuda.type and g.dtype == torch.float32
+        assert torch.equal(g.cpu().view(torch.int32), want.view(torch.int32))

@@ -30,7 +30,8 @@ from image_compression_tpu.ops import edges as je
 from image_compression_torch import pipeline as tp
 from image_compression_torch.config import Config, EdgeTarget
 from image_compression_torch.io import pypng
-from image_compression_torch.io.image_io import ensure_rgba, load_image
+from image_compression_torch.io.image_io import (ensure_rgba, load_image,
+                                                 to_float01_rgb)
 from image_compression_torch.io.reassemble import reassemble_array
 from image_compression_torch.ops import edges as te
 
@@ -448,6 +449,77 @@ def test_guard_keeps_a_fitting_slicing_as_the_reference_writes_it(runs,
     assert profiling.counters() == {"compress.kept_images": 1,
                                     "compress.guard_rewrites": 0}
     profiling.reset()
+
+
+def _every_value(depth, channels):
+    """A square image holding every value of the integer `depth` in each
+    channel, each channel's values shifted against the last's; 2-D where
+    `channels` is 0."""
+    n = np.iinfo(depth).max + 1
+    side = int(np.sqrt(n))
+    values = np.arange(n, dtype=depth).reshape(side, side)
+    if not channels:
+        return values
+    return np.stack([np.roll(values, 7 * k) for k in range(channels)], axis=2)
+
+
+def _batch_case(name):
+    """The images of one _float01_batch case, all of one shape."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def u8(*shape):
+        return rng.integers(0, 256, (16, 16) + shape, np.uint8)
+
+    def u16(*shape):
+        return rng.integers(0, 65536, (16, 16) + shape, np.uint16)
+
+    if name == "padded":  # a partial batch padded by repetition
+        last = u8(3)
+        return [u8(3), last, last, last]
+    if name == "every_8bit":
+        return [_every_value(np.uint8, c) for c in (0, 1, 3, 4)]
+    if name == "every_16bit":
+        return [_every_value(np.uint16, c) for c in (3, 4)]
+    if name == "every_8bit_and_16bit":
+        return [np.tile(_every_value(np.uint8, 3), (16, 16, 1)),
+                _every_value(np.uint16, 3),
+                np.tile(_every_value(np.uint8, 0), (16, 16))]
+    return {"rgb_8bit": lambda: [u8(3), u8(3)],
+            "rgba_8bit": lambda: [u8(4), u8(4)],
+            "gray_2d_8bit": lambda: [u8(), u8()],
+            "gray_1ch_8bit": lambda: [u8(1), u8(1)],
+            "rgb_16bit": lambda: [u16(3), u16(3)],
+            "8bit_and_16bit": lambda: [u8(3), u16(3), u8(4), u16(1)],
+            "8bit_and_float32": lambda: [
+                u8(3), rng.random((16, 16, 3)).astype(np.float32)],
+            }[name]()
+
+
+@pytest.mark.parametrize("name", [
+    "rgb_8bit", "rgba_8bit", "gray_2d_8bit", "gray_1ch_8bit", "rgb_16bit",
+    "8bit_and_16bit", "8bit_and_float32", "padded", "every_8bit",
+    "every_16bit", "every_8bit_and_16bit"])
+def test_float01_batch_equals_the_host_conversion(name):
+    """The compress batch built from integer pixels through the depth's
+    table is bit for bit the stack of to_float01_rgb's conversions, for
+    every channel layout and depth, a batch mixing depths, a padded batch
+    and every 8- and 16-bit value."""
+    images = _batch_case(name)
+    want = torch.as_tensor(np.stack([to_float01_rgb(im) for im in images]))
+    got = tp._float01_batch(images, torch.device("cpu"))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("image", [np.zeros((4, 4, 2), np.uint8),
+                                   np.zeros((4, 4, 3), np.int16)])
+def test_float01_batch_rejects_what_to_float01_rgb_rejects(image):
+    """A channel count or dtype to_float01_rgb refuses raises the same
+    ValueError from _float01_batch."""
+    with pytest.raises(ValueError) as host:
+        to_float01_rgb(image)
+    with pytest.raises(ValueError, match=str(host.value)):
+        tp._float01_batch([image], torch.device("cpu"))
 
 
 def _two_shapes(root):

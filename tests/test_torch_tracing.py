@@ -378,6 +378,49 @@ def test_decode_pool_adds_no_sync(tmp_path, monkeypatch):
     assert "load.decode" not in live.calls
 
 
+def test_costs_input_span_only_while_traced(tmp_path):
+    """Untraced, the batch's preparation records nothing. Traced, it is the
+    host span "costs.input" (no device events) under each batch's "costs",
+    on the main thread, with the batch's id."""
+    data = _corpus(tmp_path / "data")
+    _graph_job(data, tmp_path / "off", traced=False)
+    assert records() == []
+    _graph_job(data, tmp_path / "on")
+    got = records()
+    inputs = [r for r in got if r["name"] == "costs.input"]
+    main = {r["thread"] for r in got if r["name"] == "costs"}
+    assert [r["id"] for r in inputs] == [0, 1, 2]
+    assert {(r["parent"], r["thread"]) for r in inputs} == {("costs",
+                                                             *main)}
+    costs = [r for r in got if r["name"] == "costs"]
+    for inner, outer in zip(inputs, costs):
+        assert (outer["start_ns"] <= inner["start_ns"] <= inner["end_ns"]
+                <= outer["end_ns"])
+    assert snapshot()["spans"]["costs.input"]["device_s"] is None
+
+
+def test_costs_input_adds_no_sync(tmp_path, monkeypatch):
+    """The calls that wait for the device are those of the same job without
+    tracing, and per span those of a traced job without "costs.input"."""
+    data = _corpus(tmp_path / "data")
+
+    def syncing_calls(tag, traced=True):
+        mode = _SyncingCalls()
+        _graph_job(data, tmp_path / tag, traced, mode)
+        return mode
+
+    live = syncing_calls("live")
+    untraced = syncing_calls("untraced", traced=False)
+    traced = pipeline.span
+    monkeypatch.setattr(pipeline, "span", lambda name, *a, **k: (
+        contextlib.nullcontext() if name == "costs.input"
+        else traced(name, *a, **k)))
+    bare = syncing_calls("bare")
+    assert live.total == untraced.total == bare.total > 0
+    live.calls.pop("costs.input", None)
+    assert live.calls == bare.calls and live.calls["costs"] > 0
+
+
 def test_rl_step_spans(tmp_path):
     """A tiny REINFORCE step records sample, multicut and reward under
     solve_reward, the three stages under rl.step, all with the step's id."""
@@ -429,6 +472,24 @@ def test_syncs_and_device_time_on_card(cuda, tmp_path):
     assert spans["step"]["syncs"] == 1
     assert all(s["device_s"] is not None and s["device_s"] >= 0
                for s in spans.values())
+
+
+@pytest.mark.cuda
+def test_costs_input_waits_for_nothing_on_card(cuda, tmp_path):
+    """On a card, once a job has built the tables and the page-locked
+    buffer, the batch's preparation (stack, upload, gather) counts no
+    sync and has no device events of its own."""
+    data = _corpus(tmp_path / "data")
+    pipeline.compress_directory(
+        Config(dataset_dir=str(data), results_dir=str(tmp_path / "warm")),
+        classical=EdgeTarget.GRAPH, batch_size=2, device=cuda)
+    with device_trace(tmp_path / "trace"):
+        pipeline.compress_directory(
+            Config(dataset_dir=str(data), results_dir=str(tmp_path / "out")),
+            classical=EdgeTarget.GRAPH, batch_size=2, device=cuda)
+    inputs = snapshot()["spans"]["costs.input"]
+    assert inputs["count"] == 3 and inputs["syncs"] == 0
+    assert inputs["device_s"] is None
 
 
 @pytest.mark.cuda
