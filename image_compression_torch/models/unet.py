@@ -11,6 +11,13 @@ Input [B, H, W, 3] float, output [B, H, W, 4] f32 raw edge parameters
 (channels 0/1 = mu/sigma of horizontal edges, 2/3 of vertical ones); the
 NHWC layout of the reference is kept at the interface. Submodule and
 parameter names mirror the flax parameter tree (models/convert.py).
+
+Under inference mode a bf16 U-Net on a card runs each norm, ReLU and cast
+as one hand-written kernel (ops/group_norm_relu.py), which reads the
+convolution's bf16 output and writes the next layer's bf16 input; with
+autograd able to record (training, `no_grad`), in f32 and on the CPU the
+chain runs as written, since the kernel has no backward. While traced,
+"unet.norms" counts every norm and "unet.norms_fused" those the kernel ran.
 """
 
 from __future__ import annotations
@@ -18,6 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from image_compression_torch.ops.group_norm_relu import (
+    group_norm_relu, group_norm_relu_plain)
+from image_compression_torch.utils.profiling import count, tracing
 
 GROUPS = 8
 EPS = 1e-6  # flax GroupNorm's epsilon (PyTorch's default is 1e-5)
@@ -37,10 +48,20 @@ class DoubleConv(nn.Module):
             x = F.conv2d(x, conv.weight.to(dtype), conv.bias.to(dtype),
                          padding=1)
             # normalize in f32, then back to the compute dtype
-            x = F.group_norm(x.float(), GROUPS, norm.weight, norm.bias,
-                             EPS)
-            x = F.relu(x).to(dtype)
+            fused = _fused(x)
+            if tracing():
+                count("unet.norms")
+                count("unet.norms_fused", int(fused and x.is_cuda))
+            norm_relu = group_norm_relu if fused else group_norm_relu_plain
+            x = norm_relu(x, norm.weight, norm.bias, GROUPS, EPS)
         return x
+
+
+def _fused(x: torch.Tensor) -> bool:
+    """Whether the norms go through group_norm_relu (the kernel on a card,
+    the chain on the CPU): a bf16 activation under inference mode, where no
+    autograd graph can be recorded."""
+    return x.dtype == torch.bfloat16 and torch.is_inference_mode_enabled()
 
 
 class Down(nn.Module):
@@ -88,6 +109,10 @@ class EdgeUNet(nn.Module):
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         x = x_nhwc.permute(0, 3, 1, 2).to(self.dtype)
+        if x.is_cuda and _fused(x):
+            # the kernel takes contiguous NCHW; the permuted input would make
+            # the first convolution's output channels_last
+            x = x.contiguous()
         x1 = self.inc(x)
         x2 = self.down1(x1)
         x3 = self.down2(x2)

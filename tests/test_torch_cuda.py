@@ -25,6 +25,11 @@ def launches() -> int:
     return counters().get("leaf.launches", 0)
 
 
+def norm_launches() -> int:
+    """The GroupNorm + ReLU kernel's launches in this process so far."""
+    return counters().get("group_norm_relu.launches", 0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -256,25 +261,29 @@ def test_spatial_solve_on_card_equals_unsharded(cuda, agg):
     assert torch.equal(got, want)
 
 
+def _flagship_model(device):
+    import pathlib
+
+    from image_compression_torch.models.unet import EdgeUNet
+    from image_compression_torch.train.checkpoint import load_params
+    params = load_params(pathlib.Path(__file__).resolve().parents[1]
+                         / "image_compression_torch" / "weights"
+                         / "fcn_pretrained_r4_mixed.pt")
+    model = EdgeUNet(base=params["inc.conv0.weight"].shape[0])
+    model.load_state_dict(params)
+    return model.to(device)
+
+
 def test_flagship_compress_on_card_is_lossless(cuda, tmp_path):
     """The trained flagship (the weights file, bf16) compresses 8 images of
     the mixed corpus at 256x256 losslessly, launching the leaf kernel, and
     no output is larger than its original plus a one-slice record."""
-    import pathlib
-
     from image_compression_torch.io.image_io import (ensure_rgba,
                                                      load_image, write_image)
     from image_compression_torch.io.reassemble import reassemble_array
-    from image_compression_torch.models.unet import EdgeUNet
     from image_compression_torch.pipeline import compress_directory
-    from image_compression_torch.train.checkpoint import load_params
     from image_compression_torch.utils.pattern_generator import mixed_corpus
-    weights = (pathlib.Path(__file__).resolve().parents[1]
-               / "image_compression_torch" / "weights"
-               / "fcn_pretrained_r4_mixed.pt")
-    params = load_params(weights)
-    model = EdgeUNet(base=params["inc.conv0.weight"].shape[0])
-    model.load_state_dict(params)
+    model = _flagship_model(cuda)
     data = tmp_path / "data"
     data.mkdir()
     for stem, img in mixed_corpus(8, 256):
@@ -325,3 +334,98 @@ def test_float01_batch_on_card_equals_host_division(cuda):
                                          for im in images]))
         assert g.device.type == cuda.type and g.dtype == torch.float32
         assert torch.equal(g.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,height,width", [(8, 256, 256), (8, 1024, 1024),
+                                            (1, 37, 53)])
+def test_group_norm_relu_matches_chain_at_every_site(cuda, monkeypatch, n,
+                                                     height, width):
+    """At each of the flagship U-Net's 14 norm sites, on its activations of
+    mixed-corpus images, with the trained and with random gamma and beta,
+    the kernel's output is the chain's except on at most 0.1% of the
+    elements, and there by at most 1 bf16 ulp of the affine step's terms
+    (group_norm_relu.distance: an output that cancels to near 0 moves by
+    more of its own ulps); its mean and rstd are within 1e-5 of a float64
+    computation (the mean relative to the row's root mean square, the
+    scale its sum is rounded at). 37 x 53 runs planes whose sizes are not
+    multiples of 8."""
+    from image_compression_torch.io.image_io import to_float01_rgb
+    from image_compression_torch.models import unet
+    from image_compression_torch.ops import group_norm_relu as gnr
+    from image_compression_torch.utils.pattern_generator import mixed_corpus
+    side = max(height, width)
+    images = np.stack([to_float01_rgb(img)[:height, :width]
+                       for _, img in mixed_corpus(n, side if side >= 64
+                                                  else 64)])
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    seen = []
+
+    def check(x, weight, bias, groups, eps):
+        want = gnr.group_norm_relu_plain(x, weight, bias, groups, eps)
+        x = x.contiguous()  # the first site's input is channels_last here
+        c = x.shape[1]
+        rand = (torch.randn(c, generator=gen, device=cuda),
+                torch.randn(c, generator=gen, device=cuda))
+        xd = x.double().reshape(x.shape[0], groups, -1)
+        mean64 = xd.mean(-1)
+        var64 = xd.var(-1, unbiased=False)
+        rstd64 = (var64 + eps).rsqrt()
+        rms64 = (mean64 ** 2 + var64).sqrt()
+        for w, b in ((weight, bias), rand):
+            y, mean, rstd = gnr.group_norm_relu_cuda(x, w, b, groups, eps)
+            ulps, scaled = gnr.distance(
+                y, gnr.group_norm_relu_plain(x, w, b, groups, eps), x, w, b,
+                mean, rstd)
+            seen.append((tuple(x.shape), float(scaled.max()),
+                         float((ulps > 0).double().mean()),
+                         float(((mean.double() - mean64).abs()
+                                / rms64).max()),
+                         float(((rstd.double() - rstd64).abs()
+                                / rstd64).max())))
+        return want
+
+    monkeypatch.setattr(unet, "group_norm_relu_plain", check)
+    with torch.no_grad():
+        _flagship_model(cuda)(torch.as_tensor(images, device=cuda))
+    assert len(seen) == 2 * 14
+    for shape, term_ulps, share, mean_err, rstd_err in seen:
+        assert term_ulps <= 1 and share <= 1e-3, (shape, term_ulps, share)
+        assert mean_err <= 1e-5 and rstd_err <= 1e-5, (shape, mean_err,
+                                                       rstd_err)
+
+
+def test_group_norm_relu_launches(cuda):
+    """14 launches a compress forward (bf16, inference mode); none in an RL
+    step, whose forwards run under no_grad and with grad."""
+    from image_compression_torch.models.unet import EdgeUNet, init_random_
+    from image_compression_torch.ops import prng
+    from image_compression_torch.pipeline import learned_costs
+    from image_compression_torch.train import steps
+    model = init_random_(EdgeUNet(base=8), seed=1).to(cuda)
+    x = torch.as_tensor(_photo_like(2, 64, 64, seed=10), device=cuda)
+    n0 = norm_launches()
+    with torch.inference_mode():
+        learned_costs(model, x)
+    assert norm_launches() == n0 + 14
+    rl = steps.init_rl_state(model, _rl_cfg())
+    n0 = norm_launches()
+    steps.make_rl_step(_rl_cfg())(rl, prng.prng_key(0), x,
+                                  torch.full((2,), 9000.0, device=cuda))
+    assert norm_launches() == n0
+
+
+def test_group_norm_relu_rejects_bad_inputs(cuda):
+    from image_compression_torch.ops.group_norm_relu import (
+        group_norm_relu_cuda)
+    x = torch.randn((2, 16, 8, 8), device=cuda).to(torch.bfloat16)
+    w = torch.ones(16, device=cuda)
+    b = torch.zeros(16, device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        group_norm_relu_cuda(x.float(), w, b, 8, 1e-6)
+    with pytest.raises(ValueError, match="groups"):
+        group_norm_relu_cuda(x[:, :12].contiguous(), w[:12], b[:12], 8, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_norm_relu_cuda(x.to(memory_format=torch.channels_last), w, b,
+                             8, 1e-6)
+    with pytest.raises(ValueError, match="weight"):
+        group_norm_relu_cuda(x, w.to(torch.bfloat16), b, 8, 1e-6)

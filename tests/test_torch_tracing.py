@@ -421,6 +421,51 @@ def test_costs_input_adds_no_sync(tmp_path, monkeypatch):
     assert live.calls == bare.calls and live.calls["costs"] > 0
 
 
+def _learned_job(data, out, traced=True, mode=None):
+    """A learned compress of `data` with a seeded bf16 U-Net of base 8 in
+    batches of 2 on the CPU, traced or not, inside the torch function
+    `mode` if one is given."""
+    from image_compression_torch.models.unet import EdgeUNet, init_random_
+    model = init_random_(EdgeUNet(base=8), seed=0)
+    cfg = Config(dataset_dir=str(data), results_dir=str(out))
+    with (device_trace(out.with_name(out.name + "_trace")) if traced
+          else contextlib.nullcontext()), (mode or contextlib.nullcontext()):
+        return pipeline.compress_directory(cfg, model, batch_size=2,
+                                           device="cpu")
+
+
+def test_unet_norms_counted_only_while_traced(tmp_path):
+    """Untraced, the U-Net counts nothing. Traced, unet.norms counts its 14
+    norms a batch inside each batch's "costs", and unet.norms_fused those
+    the kernel ran: none on the CPU, counted as 0."""
+    data = _corpus(tmp_path / "data")
+    _learned_job(data, tmp_path / "off", traced=False)
+    assert not {"unet.norms", "unet.norms_fused"} & set(counters())
+    _learned_job(data, tmp_path / "on")
+    got = snapshot()["counters"]
+    assert got["unet.norms"] == 14 * 3 and got["unet.norms_fused"] == 0
+
+
+def test_unet_norm_counters_add_no_sync(tmp_path, monkeypatch):
+    """The calls that wait for the device are those of the same learned job
+    without tracing, and per span those of a traced job whose U-Net counts
+    nothing."""
+    from image_compression_torch.models import unet
+    data = _corpus(tmp_path / "data")
+
+    def syncing_calls(tag, traced=True):
+        mode = _SyncingCalls()
+        _learned_job(data, tmp_path / tag, traced, mode)
+        return mode
+
+    live = syncing_calls("live")
+    untraced = syncing_calls("untraced", traced=False)
+    monkeypatch.setattr(unet, "count", lambda *_args: None)
+    bare = syncing_calls("bare")
+    assert live.total == untraced.total == bare.total > 0
+    assert live.calls == bare.calls and live.calls["costs"] > 0
+
+
 def test_rl_step_spans(tmp_path):
     """A tiny REINFORCE step records sample, multicut and reward under
     solve_reward, the three stages under rl.step, all with the step's id."""
@@ -516,3 +561,18 @@ def test_graph_instrumentation_adds_no_sync_on_card(cuda, tmp_path,
     bare = syncs("bare")
     assert live.pop("graph") > 0
     assert live == bare
+
+
+@pytest.mark.cuda
+def test_unet_norms_fused_on_card(cuda, tmp_path):
+    """On a card a traced learned compress runs every norm through the
+    kernel: unet.norms_fused equals unet.norms, 14 a batch."""
+    from image_compression_torch.models.unet import EdgeUNet, init_random_
+    data = _corpus(tmp_path / "data")
+    model = init_random_(EdgeUNet(base=8), seed=0)
+    with device_trace(tmp_path / "trace"):
+        pipeline.compress_directory(
+            Config(dataset_dir=str(data), results_dir=str(tmp_path / "out")),
+            model, batch_size=2, device=cuda)
+    got = snapshot()["counters"]
+    assert got["unet.norms"] == got["unet.norms_fused"] == 14 * 3
